@@ -14,6 +14,14 @@ Phases, each printing its own lines:
    (``torch.matmul`` of 0/1 bf16 masks, a yardstick the port never
    calls) and its bound (the larger of bytes over the memory rate and
    word-pair operations over the int32 rate);
+2b. the ordered paged-commit kernel against its plain version on the
+   card, bitwise, at the serving session's own shape (128 pages of
+   16 x 8 float32, 8 slots) and at a paged KV cache the size of the
+   ``decode_32k`` shape (128 slots x 32,768 positions in pages of 16,
+   stablelm's KV width 8 x 160, bf16: 262,144 pages, 10.7 GB); inputs
+   repeat pages and (page, row) pairs, skip slots and carry page ids
+   past either end.  Its time, the plain version's, the functional
+   wrapper's clone, the bound and an empty launch's time (the floor);
 3. the main path: a stream of STAMP vacation-high batches
    (``vacation_like(update_pct=90)``, 1,048,576 objects as in
    ``-r1048576``, K = 1024 transactions, 8 lanes) through
@@ -23,7 +31,23 @@ Phases, each printing its own lines:
    formulation): fingerprint, replay log and every trace field must be
    bitwise equal to the card's, and the final store must equal a plain
    numpy serial interpreter's;
-5. the host time of each step of one full-rung round (synchronised).
+5. the host time of each step of one full-rung round (synchronised);
+6. serving at full width and depth: ``Session(get_config("stablelm-12b"),
+   ..., n_slots=8, max_seq=256, device="cuda")`` with random bf16
+   weights from a seeded generator (all 40 layers, about 24 GB), 32
+   greedy steps, then again with the requests' arrivals reversed: tokens
+   and ``fingerprint()`` must be bitwise equal, and the commit kernel's
+   launches in this phase > 0.  Median ms per step, tokens/s, the
+   weight-streaming bound and the peak memory allocated;
+7. the same configuration cut to 2 layers (widths untouched), its
+   weights copied to the CPU: ``decode_step`` teacher-forced on the card
+   and on the CPU, in float32 (the weights upcast), must agree within
+   the reference tests' rtol = atol = 3e-2; in bf16 the card's logits
+   may be no further from the float32 ones than twice the CPU's own
+   bf16 logits are; and a CPU ``Session`` fed the card's logits must
+   commit bitwise the same ``page_meta``, ``page_versions`` and
+   ``fingerprint()``.  The phases print, besides, the serving step's
+   device time and busy share from ``torch.profiler``.
 
 The second line from the end is the kernels' JSON summary and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -32,6 +56,7 @@ non-zero; without a CUDA device it exits 1 at once and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -42,6 +67,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# cuBLAS is deterministic under torch's deterministic mode only with a
+# fixed workspace; it must be set before CUDA initialises
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 N_OBJECTS = 1 << 20     # STAMP vacation -r1048576
 K = 1024                # transactions per batch
@@ -49,6 +77,15 @@ N_LANES = 8
 N_BATCHES = 4
 SEED = 0
 STRIP = 256             # the compact rung below K = 1024
+
+SERVE_ARCH = "stablelm-12b"
+SERVE_SLOTS = 8
+SERVE_MAX_SEQ = 256
+SERVE_STEPS = 32
+PROFILED_STEPS = 2
+HELD_LAYERS = 2         # phase 7's cut of depth
+HELD_STEPS = 4
+TOL = 3e-2              # rtol = atol of the reference's model tests
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 x
@@ -58,10 +95,15 @@ STRIP = 256             # the compact rung below K = 1024
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/conflict.cu"
+SOURCES = {
+    "conflict_matrix_bits_pair": "src/repro_torch/kernels/csrc/conflict.cu",
+    "conflict_matrix_bits_delta": "src/repro_torch/kernels/csrc/conflict.cu",
+    "kv_commit": "src/repro_torch/kernels/csrc/kv_commit.cu",
+}
 REPLACES = {
     "conflict_matrix_bits_pair": "src/repro/kernels/conflict.py:132",
     "conflict_matrix_bits_delta": "src/repro/kernels/conflict.py:98",
+    "kv_commit": "src/repro/kernels/kv_commit.py:52",
 }
 
 
@@ -302,6 +344,309 @@ def phase_round_breakdown(wl):
     log(f"  {total:9.3f} ms  sum")
 
 
+def kv_commit_inputs(rng, n_pages, page, h, n_slots, dtype):
+    """A cache drawn on the card from a seeded generator and slot inputs
+    drawn with numpy: pages repeat (a pool of n_slots / 4 pages), so do
+    (page, row) pairs; a fifth of the slots skip; two to four carry page
+    ids past either end; row ids run past both ends of the page."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(
+        int(rng.integers(1 << 30)))
+    cache = torch.randn((n_pages, page, h), generator=gen, device="cuda",
+                        dtype=dtype)
+    versions = torch.zeros((n_pages,), dtype=torch.int32, device="cuda")
+    pool = rng.choice(n_pages, max(1, n_slots // 4), replace=False)
+    page_idx = rng.choice(pool, n_slots)
+    bad = [-1, n_pages, -n_pages - 3, n_pages + 7][:max(2, n_slots // 32)]
+    page_idx[rng.choice(n_slots, len(bad), replace=False)] = bad
+    meta = [page_idx, rng.integers(-page - 2, page + 2, n_slots),
+            rng.permutation(n_slots) + 1, rng.random(n_slots) < 0.8]
+    meta = [torch.from_numpy(np.asarray(a, np.int32)).cuda() for a in meta]
+    rows = torch.from_numpy(
+        rng.normal(size=(n_slots, h)).astype(np.float32)).cuda()
+    return cache, versions, rows, meta
+
+
+def kv_commit_bytes(page_idx, row_idx, commit, n_pages, page, h, elem):
+    """Bytes this run's commit must move: the winning rows read (float32)
+    and written (cache type), each page's version written once, and the
+    16 bytes of metadata of every slot."""
+    from repro_torch.kernels.ref import page_row
+    rows, pages = set(), set()
+    for p, r, c in zip(page_idx.tolist(), row_idx.tolist(), commit.tolist()):
+        if c and 0 <= p < n_pages:
+            rows.add((p, page_row(r, page)))
+            pages.add(p)
+    return len(rows) * h * (4 + elem) + 4 * len(pages) + 16 * len(page_idx)
+
+
+def phase_kv_commit():
+    """The ordered paged-commit kernel vs its plain version, bitwise."""
+    import torch
+    from repro_torch.kernels import kv_commit, ref
+    from repro_torch.configs import SHAPES, get_config
+
+    cfg = get_config(SERVE_ARCH)
+    big = SHAPES["decode_32k"]
+    page = 16
+    shapes = {
+        "session": (SERVE_SLOTS * SERVE_MAX_SEQ // page, page, 8,
+                    SERVE_SLOTS, torch.float32),
+        "decode_32k": (big.global_batch * big.seq_len // page, page,
+                       cfg.n_kv_heads * cfg.hd, big.global_batch,
+                       torch.bfloat16),
+    }
+    rng = np.random.default_rng(SEED)
+    floor = cuda_time_ms(lambda: kv_commit.empty_launch("cuda"), 200)
+    out = {}
+    for label, (n_pages, page, h, n_slots, dtype) in shapes.items():
+        cache, versions, rows, meta = kv_commit_inputs(
+            rng, n_pages, page, h, n_slots, dtype)
+        got_c, got_v = kv_commit.kv_commit(cache, versions, rows, *meta)
+        exp_c, exp_v = ref.kv_commit_ref(cache, versions, rows, *meta)
+        torch.cuda.synchronize()
+        assert torch.equal(got_c.view(torch.uint8), exp_c.view(torch.uint8)
+                           ), f"kv_commit != plain ({label})"
+        assert torch.equal(got_v, exp_v), f"kv_commit versions ({label})"
+        changed = int((got_v != versions).sum())
+        assert changed > 0, "no page committed"
+        del exp_c, exp_v
+        t = cuda_time_ms(
+            lambda: kv_commit.kv_commit_(got_c, got_v, rows, *meta), 200)
+        t_plain = cuda_time_ms(
+            lambda: ref.kv_commit_ref_(got_c, got_v, rows, *meta), 5)
+        t_clone = cuda_time_ms(lambda: (cache.clone(), versions.clone()),
+                               10)
+        nbytes = kv_commit_bytes(meta[0].cpu(), meta[1].cpu(), meta[3].cpu(),
+                                 n_pages, page, h, cache.element_size())
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"kv_commit {label}: cache ({n_pages}, {page}, {h}) "
+            f"{str(dtype).split('.')[-1]} "
+            f"({cache.numel() * cache.element_size() / 1e9:.3f} GB), "
+            f"S={n_slots}, {changed} pages stamped: kernel {t:.5f} ms in "
+            f"place, plain {t_plain:.4f} ms, clone of cache+versions "
+            f"{t_clone:.4f} ms, bound {bound_ms:.3e} ms ({nbytes} bytes), "
+            f"empty launch {floor:.5f} ms, bitwise equal")
+        out[label] = dict(max_abs_err=0, ms=t, plain_ms=t_plain,
+                          bound_ms=bound_ms, bound_by="bytes",
+                          library_ms=None, floor_ms=floor,
+                          clone_ms=t_clone)
+        del cache, versions, rows, meta, got_c, got_v
+        torch.cuda.empty_cache()
+    return out["session"]
+
+
+def weight_bytes(params) -> int:
+    """Bytes of the weights one decode step streams: every layer, the
+    final norm and the head; the embedding is a gather of B rows."""
+    import torch
+
+    def size(t) -> int:
+        if torch.is_tensor(t):
+            return t.numel() * t.element_size()
+        return sum(map(size, t.values() if isinstance(t, dict) else t))
+
+    return size([params["layers"], params["final_norm"], params["head"]])
+
+
+def phase_serve():
+    """Serving at full width and depth, two replicas."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import kv_commit
+    from repro_torch.models import lm
+    from repro_torch.serve.session import Session
+
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    requests = [(s, 3 + 7 * s) for s in range(SERVE_SLOTS)]
+    torch.cuda.synchronize()
+    kv_commit.reset_launches()
+    runs = []
+    for order in (requests, requests[::-1]):
+        sess = Session(cfg, params, n_slots=SERVE_SLOTS,
+                       max_seq=SERVE_MAX_SEQ, device="cuda")
+        for slot, tok in order:
+            sess.add_request(slot, tok)
+        toks, times = [], []
+        for _ in range(SERVE_STEPS):
+            t0 = time.perf_counter()
+            toks.append(sess.step())   # returns host tokens: synchronised
+            times.append(time.perf_counter() - t0)
+        runs.append((np.stack(toks, axis=1), sess.fingerprint(), times))
+        del sess
+    torch.cuda.synchronize()
+    launches = kv_commit.LAUNCHES["kv_commit"]
+    (t1, f1, times1), (t2, f2, times2) = runs
+    assert np.array_equal(t1, t2), "replica tokens differ"
+    assert f1 == f2, "replica fingerprints differ"
+    assert ((t1 >= 0) & (t1 < cfg.padded_vocab)).all()
+    assert launches > 0, "kv_commit was never launched on the serving path"
+    ms = float(np.median(times1 + times2)) * 1e3
+    nbytes = weight_bytes(params)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"weights {nbytes / 1e9:.3f} GB bf16 (init {t_init:.2f} s); "
+        f"{SERVE_SLOTS} slots x {SERVE_STEPS} steps x 2 replicas: median "
+        f"{ms:.3f} ms per step (first {times1[0] * 1e3:.1f} ms), "
+        f"{SERVE_SLOTS / ms * 1e3:.1f} tokens/s; weight-streaming bound "
+        f"{bound:.3f} ms per step; peak allocated {peak:.2f} GB; "
+        f"kv_commit launches {launches}; replicas (reversed arrivals) "
+        f"bitwise identical, fingerprint {f1:#010x}")
+    log(f"  slot 0 tokens: {t1[0].tolist()}")
+    profile_decode(params, cfg, ms)
+    return params, launches
+
+
+def profile_decode(params, cfg, step_ms):
+    """Device time and kernel launches of PROFILED_STEPS decode steps of
+    a fresh session (torch.profiler), against the unprofiled step time:
+    the device's busy share and the kernels that take it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.session import Session
+
+    sess = Session(cfg, params, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                   device="cuda")
+    for s in range(SERVE_SLOTS):
+        sess.add_request(s, 3 + 7 * s)
+    sess.step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_STEPS):
+            sess.step()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log("  profile: the profiler recorded no device time (not measured)")
+        return
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    device_ms = sum(map(sum, by_name.values())) / 1e3 / PROFILED_STEPS
+    log(f"  profile of {PROFILED_STEPS} steps: "
+        f"{len(kernels) / PROFILED_STEPS:.0f} kernels and {device_ms:.3f} "
+        f"ms of device time per step; busy "
+        f"share {device_ms / step_ms:.3f} of the unprofiled median step")
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
+    for name, times in top:
+        log(f"    {sum(times) / 1e3 / PROFILED_STEPS:8.3f} ms "
+            f"{len(times) / PROFILED_STEPS:6.0f}x  {name[:70]}")
+
+
+def teacher_forced(params, cfg, device, dtype):
+    """Logits of HELD_STEPS decode steps fed one token stream (from SEED,
+    slots at scattered positions), and the final cache, as float32 on
+    the CPU."""
+    import torch
+    from repro_torch.models import lm
+    rng = np.random.default_rng(SEED)
+    cache = lm.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_SEQ, device, dtype)
+    pos = rng.integers(0, SERVE_MAX_SEQ - HELD_STEPS, SERVE_SLOTS)
+    logits = []
+    for _ in range(HELD_STEPS):
+        tok = rng.integers(0, cfg.padded_vocab, (SERVE_SLOTS, 1))
+        out, _ = lm.decode_step(
+            params, cache, torch.from_numpy(tok).to(device),
+            torch.from_numpy(pos.astype(np.int32)).to(device), cfg)
+        logits.append(out.float().cpu())
+        pos = pos + 1
+    return torch.stack(logits), {k: v.float().cpu() for k, v in
+                                 cache.items()}
+
+
+def phase_serve_held(params):
+    """Card vs CPU at full width, depth cut to HELD_LAYERS.
+
+    The decode math is held in float32 (the same bf16 weights, upcast,
+    on both sides), where the card and the CPU differ only in the order
+    of float32 sums, at the reference tests' rtol = atol = 3e-2.  In
+    bf16 the two round at other places, and at d_model 5120 that alone
+    moves logits by more than 3e-2; there the card's distance from the
+    float32 logits is held to at most twice the CPU's own.  The Pot half
+    is held bitwise: a CPU session fed the card's logits commits the
+    same pages."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.session import Session
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=HELD_LAYERS)
+    card = dict(params, layers=params["layers"][:HELD_LAYERS])
+    t0 = time.perf_counter()
+    cpu = lm.params_to(card, "cpu")
+    t_copy = time.perf_counter() - t0
+    f32, bf16 = torch.float32, torch.bfloat16
+    t0 = time.perf_counter()
+    runs = {
+        "card bf16": teacher_forced(card, cfg, "cuda", bf16),
+        "card f32": teacher_forced(lm.params_to(card, "cuda", f32), cfg,
+                                   "cuda", f32),
+        "cpu bf16": teacher_forced(cpu, cfg, "cpu", bf16),
+        "cpu f32": teacher_forced(lm.params_to(cpu, "cpu", f32), cfg, "cpu",
+                                  f32),
+    }
+    t_runs = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    dist = lambda a, b: float((runs[a][0] - runs[b][0]).abs().max())
+    assert all(torch.isfinite(r[0]).all() for r in runs.values())
+    torch.testing.assert_close(runs["card f32"][0], runs["cpu f32"][0],
+                               rtol=TOL, atol=TOL)
+    for name in ("k", "v"):
+        torch.testing.assert_close(runs["card f32"][1][name],
+                                   runs["cpu f32"][1][name], rtol=TOL,
+                                   atol=TOL)
+    card_err, cpu_err = dist("card bf16", "cpu f32"), dist("cpu bf16",
+                                                           "cpu f32")
+    assert card_err <= 2 * cpu_err, (card_err, cpu_err)
+    a, b = runs["card bf16"][0], runs["cpu bf16"][0]
+    over = int(((a - b).abs() > TOL + TOL * b.abs()).sum())
+    log(f"serve held to account ({HELD_LAYERS} layers, full width; weights "
+        f"to CPU in {t_copy:.1f} s; four teacher-forced runs of "
+        f"{HELD_STEPS} steps in {t_runs:.1f} s): float32 logits max "
+        f"|card - CPU| {dist('card f32', 'cpu f32'):.3e} within rtol = atol "
+        f"= {TOL}, caches too; bf16 logits max |card - CPU f32| "
+        f"{card_err:.5f} <= 2 x {cpu_err:.5f} (CPU bf16's own); bf16 max "
+        f"|card - CPU| {dist('card bf16', 'cpu bf16'):.5f}, {over} of "
+        f"{b.numel()} outside rtol = atol = {TOL}; logits std "
+        f"{float(runs['cpu f32'][0].std()):.3f}")
+    del runs
+
+    # the committed state: a CPU session fed the card's logits
+    g = Session(cfg, card, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                device="cuda")
+    c = Session(cfg, cpu, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                device="cpu")
+    card_decode = g._decode
+    fed = []
+
+    def card_recording(*args):
+        out = card_decode(*args)
+        fed.append(out[0].cpu())
+        return out
+
+    g._decode = card_recording
+    c._decode = lambda p, cache, t, po: (fed[-1], cache)
+    for s in range(SERVE_SLOTS):
+        g.add_request(s, 3 + 7 * s)
+        c.add_request(s, 3 + 7 * s)
+    for _ in range(SERVE_STEPS):
+        card_tokens = g.step()          # records the logits c is fed
+        assert np.array_equal(card_tokens, c.step()), "tokens differ"
+    assert torch.equal(g.page_meta.cpu(), c.page_meta), "page_meta"
+    assert torch.equal(g.page_versions.cpu(), c.page_versions), "versions"
+    assert g.fingerprint() == c.fingerprint(), "fingerprints differ"
+    log(f"  CPU session fed the card's logits for {SERVE_STEPS} steps == "
+        f"card session on tokens, page_meta, page_versions and fingerprint "
+        f"{g.fingerprint():#010x}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -324,11 +669,15 @@ def main() -> int:
            for b in range(N_BATCHES + 1)]
     stream, extra = wls[:N_BATCHES], wls[N_BATCHES]
     kernels = phase_kernels(stream[0].batch.to("cuda"))
+    kernels["kv_commit"] = phase_kv_commit()
     gpu_session, gpu_traces, launches = phase_main_path(stream)
     phase_held_to_account(stream, gpu_session, gpu_traces)
     phase_round_breakdown(extra)
+    del gpu_session, gpu_traces
+    params, launches["kv_commit"] = phase_serve()
+    phase_serve_held(params)
 
-    summary = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
+    summary = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     **kernels[name]) for name in REPLACES]
     log(json.dumps({"kernels": summary}))

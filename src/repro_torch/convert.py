@@ -1,12 +1,15 @@
 """Carry state between the reference package and the port, as numpy.
 
-This system has no weights: its state is the store and the batches, and
-its result the store and the traces.  ``*_from_numpy`` builds the port's
+The transactional core has no weights: its state is the store and the
+batches, and its result the store and the traces.  ``*_from_numpy``
+builds the port's
 object from anything holding the fields as arrays (a mapping, or an
 object with the attributes — the reference's own ``TStore``,
 ``TxnBatch`` or ``ExecTrace`` qualify, since ``np.asarray`` reads their
 arrays); ``*_to_numpy`` returns a dict of numpy arrays that the
 reference's constructors accept after ``jnp.asarray``.
+
+The serving path's LM weights cross with :func:`lm_params_from_numpy`.
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ import torch
 from repro_torch.core.engine import ExecTrace
 from repro_torch.core.tstore import TStore
 from repro_torch.core.txn import TxnBatch
+from repro_torch.models import lm
+from repro_torch.models.blocks import C
+from repro_torch.models.config import ModelConfig
 
 
 def _field(src, name: str) -> np.ndarray:
@@ -67,3 +73,31 @@ def trace_from_numpy(src, device="cuda") -> ExecTrace:
 
 def trace_to_numpy(trace: ExecTrace) -> dict[str, np.ndarray]:
     return _to_numpy(trace)
+
+
+def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
+    """The port's LM parameters from the reference's parameter tree as
+    numpy (``jax.tree.map(np.asarray, params)``).
+
+    Each ``layers["i"]`` leaf of shape (G, ...) is unstacked into one
+    parameter dict per layer (layer ``g * len(pattern) + i``).  Values
+    are stored in bf16, which is what the reference's ``_cast`` makes of
+    every float32 parameter at each use, so no bit changes."""
+    lm.check_supported(cfg)
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(
+            device=device, dtype=C)
+
+    def tree_map(fn, t):
+        if isinstance(t, Mapping):
+            return {k: tree_map(fn, v) for k, v in t.items()}
+        return fn(t)
+
+    out = {k: tensor(tree[k]) for k in ("embed", "final_norm", "head")
+           if k in tree}
+    n_groups = np.shape(tree["layers"]["0"]["ln1"])[0]
+    out["layers"] = [
+        tree_map(lambda a: tensor(np.asarray(a)[g]), tree["layers"][str(i)])
+        for g in range(n_groups) for i in range(len(cfg.pattern))]
+    return out

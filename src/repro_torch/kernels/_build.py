@@ -1,4 +1,4 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build, load and launch the hand-written CUDA kernels.
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface and loaded
@@ -20,7 +20,8 @@ import tempfile
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = {"conflict": _HERE / "csrc" / "conflict.cu"}
+SOURCES = {"conflict": _HERE / "csrc" / "conflict.cu",
+           "kv_commit": _HERE / "csrc" / "kv_commit.cu"}
 BUILD_DIR = _HERE / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -32,6 +33,11 @@ SIGNATURES = {
     "conflict": {
         "pot_conflict_pair": [_P, _P, _P, _I, _I, _I, _P],
         "pot_conflict_delta": [_P, _P, _P, _P, _P, _I, _I, _P],
+    },
+    "kv_commit": {
+        "pot_kv_commit_f32": [_P] * 7 + [_I] * 4 + [_P],
+        "pot_kv_commit_bf16": [_P] * 7 + [_I] * 4 + [_P],
+        "pot_empty_launch": [_P],
     },
 }
 
@@ -95,3 +101,26 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def on_card(t, what: str) -> bool:
+    """True for a CUDA tensor (the kernel's route), False for a CPU one
+    (the plain version's); raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {t.device}")
+    return True
+
+
+def launch(name: str, fn: str, device, *args) -> None:
+    """Launch entry point ``fn`` of library ``name`` on ``device``'s
+    current stream, with ``device`` made current so the kernel runs
+    where its tensors live; raises if the launch was refused."""
+    import torch
+    lib = load(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError {err}")

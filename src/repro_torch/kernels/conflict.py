@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 
 LAUNCHES = {"conflict_matrix_bits_pair": 0, "conflict_matrix_bits_delta": 0}
 
@@ -47,33 +47,13 @@ def _check_bits(*tensors: torch.Tensor) -> None:
             raise ValueError(f"tensors on {t.device} and {dev}")
 
 
-def _launch(fn: str, device: torch.device, *args) -> None:
-    """Launch ``fn`` on ``device``'s current stream, with ``device`` made
-    current so the kernel runs where its tensors live."""
-    from repro_torch.kernels import _build
-    lib = _build.load("conflict")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} launch failed: cudaError {err}")
-
-
-def _on_card(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"no conflict kernel for device {t.device}")
-    return True
-
-
 def conflict_matrix_bits_pair(foot_bits: torch.Tensor,
                               write_bits: torch.Tensor) -> torch.Tensor:
     """(M, N) bool, out[i, j] = any_w(foot_bits[i, w] & write_bits[j, w]),
     for foot_bits (M, W) and write_bits (N, W) int32 over different row
     sets.  Any M, N and W; nothing is padded."""
     _check_bits(foot_bits, write_bits)
-    if not _on_card(foot_bits):
+    if not _build.on_card(foot_bits, "conflict"):
         return ref.conflict_matrix_bits_pair_ref(foot_bits, write_bits)
     m, w = foot_bits.shape
     n = write_bits.shape[0]
@@ -82,8 +62,9 @@ def conflict_matrix_bits_pair(foot_bits: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.bool, device=foot_bits.device)
     if m == 0 or n == 0:
         return out
-    _launch("pot_conflict_pair", foot_bits.device, foot_bits.data_ptr(),
-            write_bits.data_ptr(), out.data_ptr(), m, n, w)
+    _build.launch("conflict", "pot_conflict_pair", foot_bits.device,
+                  foot_bits.data_ptr(), write_bits.data_ptr(), out.data_ptr(),
+                  m, n, w)
     LAUNCHES["conflict_matrix_bits_pair"] += 1
     return out
 
@@ -115,7 +96,7 @@ def conflict_matrix_bits_delta(foot_bits: torch.Tensor,
         raise ValueError("old and live must be bool")
     if old.device != foot_bits.device or live.device != foot_bits.device:
         raise ValueError("old and live must be on the bitsets' device")
-    if not _on_card(foot_bits):
+    if not _build.on_card(foot_bits, "conflict"):
         return ref.conflict_matrix_bits_delta_ref(foot_bits, write_bits,
                                                   old, live)
     foot_bits = foot_bits.contiguous()
@@ -125,8 +106,8 @@ def conflict_matrix_bits_delta(foot_bits: torch.Tensor,
     out = torch.empty((k, k), dtype=torch.bool, device=foot_bits.device)
     if k == 0:
         return out
-    _launch("pot_conflict_delta", foot_bits.device, foot_bits.data_ptr(),
-            write_bits.data_ptr(), old.data_ptr(), live.data_ptr(),
-            out.data_ptr(), k, w)
+    _build.launch("conflict", "pot_conflict_delta", foot_bits.device,
+                  foot_bits.data_ptr(), write_bits.data_ptr(), old.data_ptr(),
+                  live.data_ptr(), out.data_ptr(), k, w)
     LAUNCHES["conflict_matrix_bits_delta"] += 1
     return out

@@ -1,5 +1,6 @@
-"""Conflict-table plumbing around the kernels (dense store), after
-``repro.kernels.ops``.
+"""Plumbing around the kernels, after ``repro.kernels.ops``: the
+conflict-table updates of the round protocol (dense store) and the
+ordered paged commit of the serving path (``kv_cache_commit``).
 
 The reference takes its Pallas kernels only on a TPU (``_on_tpu()``) and
 otherwise dense fallbacks.  Here ``_on_cuda`` takes that place: the
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.core.txn import scatter_rows
 from repro_torch.kernels import conflict as _conf
+from repro_torch.kernels import kv_commit as _kvc
 from repro_torch.kernels import validate as _val
 
 
@@ -118,3 +120,11 @@ def conflict_matrix_delta(foot_bits: torch.Tensor, write_bits: torch.Tensor,
     (i, j) is recomputed iff transaction i or j re-executed this round
     (``live``), otherwise ``old`` is carried — the delta kernel."""
     return _conf.conflict_matrix_bits_delta(foot_bits, write_bits, old, live)
+
+
+def kv_cache_commit(cache, versions, rows, page_idx, row_idx, sn, commit):
+    """Ordered paged commit of one decode step (see ``kv_commit.py``):
+    the kernel for CUDA tensors, its plain version for CPU ones.  Returns
+    new ``(cache, versions)``; the inputs are left as they were."""
+    return _kvc.kv_commit(cache, versions, rows, page_idx, row_idx, sn,
+                          commit)

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the hand-written conflict-table kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
-They compute exactly what ``csrc/conflict.cu`` computes and are what the
-kernel wrappers in :mod:`repro_torch.kernels.conflict` run on CPU
-tensors.  The full (M, N, W) broadcast of the reference's
+They compute exactly what ``csrc/conflict.cu`` and ``csrc/kv_commit.cu``
+compute and are what the kernel wrappers in
+:mod:`repro_torch.kernels.conflict` and :mod:`repro_torch.kernels.kv_commit`
+run on CPU tensors.  The full (M, N, W) broadcast of the reference's
 ``conflict_matrix_bits_ref`` is 34 G elements at the main path's shapes
 (K = 1024, W = 32768), so both work in blocks of rows and words whose
 broadcast stays under ``_BLOCK_ELEMS`` elements.
@@ -44,3 +45,40 @@ def conflict_matrix_bits_delta_ref(foot_bits: torch.Tensor,
     fresh = conflict_matrix_bits_pair_ref(foot_bits, write_bits)
     refresh = live[:, None] | live[None, :]
     return torch.where(refresh, fresh, old)
+
+
+def page_row(r: int, page: int) -> int:
+    """The row a row id lands on, as ``lax.dynamic_update_slice`` places
+    it: a negative id counts from the end of the page once, then the
+    result is clamped to ``[0, page - 1]`` (row -1 of 4 is row 3, row -5
+    of 4 and row 9 of 4 are rows 0 and 3)."""
+    if r < 0:
+        r += page
+    return min(max(r, 0), page - 1)
+
+
+def kv_commit_ref_(cache: torch.Tensor, versions: torch.Tensor,
+                   rows: torch.Tensor, page_idx: torch.Tensor,
+                   row_idx: torch.Tensor, sn: torch.Tensor,
+                   commit: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Apply the slot commits one by one in array order, in place.
+
+    Slot s with ``commit[s] != 0`` and ``0 <= page_idx[s] < P`` writes
+    ``rows[s]`` (cast to the cache dtype) at row :func:`page_row` of
+    ``row_idx[s]``, and sets ``versions[page_idx[s]] = sn[s]``; the last
+    such slot wins.  This is the Pallas kernel's fold
+    (``repro/kernels/kv_commit.py``): a negative page id is dropped, not
+    wrapped as ``repro.kernels.ref.kv_commit_ref`` wraps it."""
+    n_pages, page, _ = cache.shape
+    meta = torch.stack([page_idx, row_idx, sn, commit]).tolist()
+    for s, (p, r, v, c) in enumerate(zip(*meta)):
+        if c != 0 and 0 <= p < n_pages:
+            cache[p, page_row(r, page)] = rows[s].to(cache.dtype)
+            versions[p] = v
+    return cache, versions
+
+
+def kv_commit_ref(cache, versions, rows, page_idx, row_idx, sn, commit):
+    """Functional :func:`kv_commit_ref_`: commits into copies."""
+    return kv_commit_ref_(cache.clone(), versions.clone(), rows, page_idx,
+                          row_idx, sn, commit)

@@ -1,0 +1,114 @@
+"""Deterministic batched serving session (Pot × decoding), after
+``repro.serve.session``.
+
+Model math runs through ``models.lm.decode_step``; the *shared serving
+state* — a paged metadata store of (page, row) entries, one page range
+per decode slot, and its page versions — is managed as preordered
+transactions: each decode step, every active slot's page-append is a
+transaction sequenced by the round-robin sequencer over slots, and the
+commits apply through the ordered paged-commit kernel
+(``kernels/kv_commit.py``), stamping page versions with sequence
+numbers.  Two replicas fed the same requests emit bitwise-identical
+tokens and fingerprints whatever the order the requests arrived in.
+
+As in the reference: every slot decodes each step (the batch is
+``n_slots``) but only active slots commit and advance; a slot's page is
+``slot * (max_seq // page_size) + pos // page_size``, so past
+``max_seq`` it runs into the next slot's pages (and past the last page
+it is dropped); greedy decoding takes the argmax over the padded vocab.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.sequencer import RoundRobinSequencer
+from repro_torch.kernels import ops
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig
+
+META_WIDTH = 8   # float32 entries of one page row
+
+
+@dataclasses.dataclass
+class Session:
+    cfg: ModelConfig
+    params: dict
+    n_slots: int
+    max_seq: int
+    page_size: int = 16
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        self.cache = lm.init_cache(self.cfg, self.n_slots, self.max_seq,
+                                   self.device)
+        self.pos = np.zeros((self.n_slots,), np.int32)       # host copy
+        self.tokens = torch.zeros((self.n_slots, 1), dtype=torch.int64,
+                                  device=self.device)
+        self.active = np.zeros((self.n_slots,), bool)
+        self.seqr = RoundRobinSequencer(n_root_lanes=self.n_slots)
+        # paged metadata store (shared state under Pot commit)
+        n_pages = self.n_slots * (self.max_seq // self.page_size)
+        self.page_meta = torch.zeros((n_pages, self.page_size, META_WIDTH),
+                                     dtype=torch.float32, device=self.device)
+        self.page_versions = torch.zeros((n_pages,), dtype=torch.int32,
+                                         device=self.device)
+
+    def _decode(self, params, cache, tokens, pos):
+        return lm.decode_step(params, cache, tokens, pos, self.cfg)
+
+    def add_request(self, slot: int, first_token: int) -> None:
+        if self.active[slot]:
+            raise ValueError(f"slot {slot} already holds a request")
+        self.active[slot] = True
+        self.tokens[slot, 0] = first_token
+        self.pos[slot] = 0
+
+    def step(self) -> np.ndarray:
+        """One decode round: model math + ordered page-commit of every
+        active slot's new row.  Returns the emitted tokens (greedy)."""
+        pos = torch.from_numpy(self.pos).to(self.device)
+        logits, self.cache = self._decode(self.params, self.cache,
+                                          self.tokens, pos)
+        nxt = torch.argmax(logits[:, 0], dim=-1)
+        nxt_host = nxt.cpu().numpy().astype(np.int32)
+
+        # ---- Pot commit of page metadata, in sequencer order ----
+        slots = [s for s in range(self.n_slots) if self.active[s]]
+        if slots:
+            sn = self.seqr.order_for(slots)
+            per_slot = self.max_seq // self.page_size
+            meta = np.asarray(
+                [[s * per_slot + int(self.pos[s]) // self.page_size
+                  for s in slots],
+                 [int(self.pos[s]) % self.page_size for s in slots],
+                 sn, np.ones(len(slots))], np.int32)
+            meta = torch.from_numpy(meta).to(self.device)
+            rows = np.repeat(nxt_host[slots].astype(np.float32)[:, None],
+                             META_WIDTH, axis=1)
+            self.page_meta, self.page_versions = ops.kv_cache_commit(
+                self.page_meta, self.page_versions,
+                torch.from_numpy(rows).to(self.device), *meta)
+
+        self.tokens = nxt[:, None]
+        self.pos = self.pos + self.active.astype(np.int32)
+        return nxt_host
+
+    def generate(self, n_steps: int) -> np.ndarray:
+        """Greedy-decode n_steps for all slots; (slots, n) tokens."""
+        return np.stack([self.step() for _ in range(n_steps)], axis=1)
+
+    def fingerprint(self) -> int:
+        """Order-sensitive FNV-1a hash of every 97th byte of the versions
+        (int32) and then of the metadata (float32), little-endian — the
+        replica consistency check."""
+        h = 0x811C9DC5
+        for x in (self.page_versions.cpu().numpy().astype("<i4").tobytes(),
+                  self.page_meta.cpu().numpy().astype("<f4").tobytes()):
+            for chunk in x[::97]:
+                h = ((h ^ chunk) * 0x01000193) & 0xFFFFFFFF
+        return h

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels against their plain versions, on the
 card: bitwise equality on ragged and main-path shapes, launch counting,
-and a small stream through the card's matrix formulation equal to the
-CPU's scatter-min run.  Marked ``cuda``; each test skips where
+a small stream through the card's matrix formulation equal to the CPU's
+scatter-min run, and the serving session on the card against the CPU's.  Marked ``cuda``; each test skips where
 ``torch.cuda.is_available()`` is false (decided inside the fixture, not
 at import).  Run on a GPU machine with
 
@@ -18,7 +18,10 @@ from repro_torch import convert
 from repro_torch.core import workloads as W
 from repro_torch.core.engine import TRACE_FIELDS
 from repro_torch.core.session import PotSession
-from repro_torch.kernels import conflict, ref
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import conflict, kv_commit, ref
+from repro_torch.models import lm
+from repro_torch.serve.session import Session
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +88,77 @@ def test_stream_on_card_equals_cpu(cuda):
         gt, ct = convert.trace_to_numpy(gt), convert.trace_to_numpy(ct)
         for f in TRACE_FIELDS:
             np.testing.assert_array_equal(gt[f], ct[f], err_msg=f)
+
+
+def _kv_inputs(rng, p, page, h, s, dtype, device):
+    """A draw with repeated pages and rows, skipped slots, arbitrary
+    sequence numbers and page / row ids past either end."""
+    t = lambda a, dt=torch.int32: torch.from_numpy(
+        np.asarray(a)).to(dtype=dt, device=device)
+    return (t(rng.normal(size=(p, page, h)), torch.float32).to(dtype),
+            t(rng.integers(0, 5, p)), t(rng.normal(size=(s, h)) * 100,
+                                        torch.float32),
+            t(rng.integers(-2, p + 2, s)), t(rng.integers(-page - 2,
+                                                          page + 2, s)),
+            t(rng.permutation(s) + 1), t(rng.random(s) < 0.8))
+
+
+@pytest.mark.parametrize("p,page,h,s", [
+    (1, 1, 1, 1), (4, 2, 8, 3), (16, 8, 128, 8), (128, 16, 8, 8),
+    (64, 4, 1280, 300),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_commit_kernel_equals_plain(cuda, p, page, h, s, dtype):
+    rng = np.random.default_rng(p + s + h)
+    args = _kv_inputs(rng, p, page, h, s, dtype, cuda)
+    before = [a.clone() for a in args[:2]]
+    kv_commit.reset_launches()
+    got_c, got_v = kv_commit.kv_commit(*args)
+    torch.cuda.synchronize()
+    assert kv_commit.LAUNCHES["kv_commit"] == 1
+    exp_c, exp_v = ref.kv_commit_ref(*args)
+    assert torch.equal(got_c.view(torch.uint8), exp_c.view(torch.uint8))
+    assert torch.equal(got_v, exp_v)
+    assert all(torch.equal(a, b) for a, b in zip(args[:2], before))
+    # in place, the same result in the caller's buffers
+    cache, versions = kv_commit.kv_commit_(*args)
+    assert cache is args[0] and torch.equal(cache, exp_c)
+    assert torch.equal(versions, exp_v)
+
+
+def test_session_on_card_commits_like_cpu(cuda):
+    """Card and CPU sessions fed one logits stream (the CPU's) commit the
+    same pages, through the kernel on the card only; the card's own
+    logits agree with the CPU's within the reference tolerance."""
+    cfg = get_smoke_config("stablelm-12b")
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    cpu = Session(cfg, params, n_slots=4, max_seq=32, device="cpu")
+    card = Session(cfg, lm.params_to(params, cuda), n_slots=4, max_seq=32,
+                   device=cuda)
+    cpu_decode, card_decode = cpu._decode, card._decode
+    fed = []
+
+    def cpu_recording(*a):
+        out = cpu_decode(*a)
+        fed.append(out[0])
+        return out
+
+    def card_fed(*a):
+        logits, cache = card_decode(*a)
+        np.testing.assert_allclose(logits.float().cpu().numpy(),
+                                   fed[-1].float().numpy(), rtol=3e-2,
+                                   atol=3e-2)
+        return fed[-1].to(cuda), cache
+
+    cpu._decode, card._decode = cpu_recording, card_fed
+    for s in range(4):
+        cpu.add_request(s, 3 + 7 * s)
+        card.add_request(s, 3 + 7 * s)
+    kv_commit.reset_launches()
+    for _ in range(8):
+        cpu_tokens = cpu.step()          # records the logits card is fed
+        np.testing.assert_array_equal(card.step(), cpu_tokens)
+    assert kv_commit.LAUNCHES["kv_commit"] == 8
+    assert torch.equal(card.page_meta.cpu(), cpu.page_meta)
+    assert torch.equal(card.page_versions.cpu(), cpu.page_versions)
+    assert card.fingerprint() == cpu.fingerprint()

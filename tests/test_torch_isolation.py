@@ -38,8 +38,12 @@ def test_port_imports_neither_jax_nor_reference(path):
 def test_importing_the_port_loads_no_jax_and_builds_nothing():
     code = (
         "import sys, repro_torch, repro_torch.kernels.ops, "
-        "repro_torch.kernels.conflict, repro_torch.convert, "
-        "repro_torch.core.workloads, repro_torch.core.oracle\n"
+        "repro_torch.kernels.conflict, repro_torch.kernels.kv_commit, "
+        "repro_torch.convert, repro_torch.core.workloads, "
+        "repro_torch.core.oracle, repro_torch.models.lm, "
+        "repro_torch.serve.session, repro_torch.launch.serve\n"
+        "from repro_torch.configs import get_config\n"
+        "get_config('stablelm-12b')\n"
         "from repro_torch.kernels import _build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
