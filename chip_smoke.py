@@ -47,7 +47,33 @@ Phases, each printing its own lines:
    bf16 logits are; and a CPU ``Session`` fed the card's logits must
    commit bitwise the same ``page_meta``, ``page_versions`` and
    ``fingerprint()``.  The phases print, besides, the serving step's
-   device time and busy share from ``torch.profiler``.
+   device time and busy share from ``torch.profiler``;
+2c. (run after 2b) both fused-AdamW kernels against their plain versions on
+   the card, bitwise on p, m, v (and abort), at the training slice's
+   leaves: the embedding (100,352 x 5,120), an MLP weight (5,120 x
+   13,824) and a norm (5,120), with g in float32 and in bf16; the
+   speculative kernel at the MLP weight's shape with versions that are
+   stale, fresh, and 2^24 + 1 against rv = 2^24 (fresh in float32).
+   Their times (bare launch into given outputs, and through the
+   functional wrapper), the plain version's, one ``torch._fused_adamw_``
+   call on the same leaf (a yardstick the port never calls) and the
+   bound (bytes over the memory rate);
+8. training at full width: stablelm-12b cut to 4 layers (widths
+   untouched), float32 master weights from a seeded generator on the
+   card, ``make_train_step(mode="pot", n_microbatches=2)`` over
+   ``batch_at(DataConfig(vocab, 128, 8), i)`` for 4 steps, twice from the
+   same seed: losses and every parameter and moment leaf bitwise equal,
+   losses finite, every parameter moved, gv == step == 4, and the AdamW
+   kernel launched once per leaf per step.  Median ms per step,
+   tokens/s, one optimizer apply's time against its bound, peak memory,
+   and a ``torch.profiler`` pass over one more step;
+9. training held to account: the smoke configuration trained 3 steps on
+   the card and on the CPU from the same weights (losses and moments, and
+   after step 1 the parameters, within the tolerances stated in
+   ``phase_train_held``); on
+   the card 4 steps straight bitwise equal to 2 steps, a checkpoint, a
+   restore and 2 more; and ``python -m repro_torch.launch.train --arch
+   stablelm-12b --smoke --steps 4`` on the card.
 
 The second line from the end is the kernels' JSON summary and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -57,10 +83,12 @@ non-zero; without a CUDA device it exits 1 at once and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -87,6 +115,13 @@ HELD_LAYERS = 2         # phase 7's cut of depth
 HELD_STEPS = 4
 TOL = 3e-2              # rtol = atol of the reference's model tests
 
+TRAIN_ARCH = "stablelm-12b"
+TRAIN_LAYERS = 4        # phase 8's cut of depth: 2.14e9 parameters
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 128, 8, 2  # the launcher's defaults
+TRAIN_STEPS = 4
+TRAIN_LR, TRAIN_WD = 3e-4, 0.01
+HELD_TRAIN_STEPS = 3
+
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 x
 # 1.98 GHz, and an SM has 64 int32 lanes, so 132 x 64 x 1.98e9 int32
@@ -99,11 +134,15 @@ SOURCES = {
     "conflict_matrix_bits_pair": "src/repro_torch/kernels/csrc/conflict.cu",
     "conflict_matrix_bits_delta": "src/repro_torch/kernels/csrc/conflict.cu",
     "kv_commit": "src/repro_torch/kernels/csrc/kv_commit.cu",
+    "fused_adamw": "src/repro_torch/kernels/csrc/fused_adamw.cu",
+    "fused_adamw_speculative": "src/repro_torch/kernels/csrc/fused_adamw.cu",
 }
 REPLACES = {
     "conflict_matrix_bits_pair": "src/repro/kernels/conflict.py:132",
     "conflict_matrix_bits_delta": "src/repro/kernels/conflict.py:98",
     "kv_commit": "src/repro/kernels/kv_commit.py:52",
+    "fused_adamw": "src/repro/kernels/fused_adamw.py:87",
+    "fused_adamw_speculative": "src/repro/kernels/fused_adamw.py:120",
 }
 
 
@@ -344,6 +383,13 @@ def phase_round_breakdown(wl):
     log(f"  {total:9.3f} ms  sum")
 
 
+def max_abs_diff(a, b, rows: int = 1 << 14) -> float:
+    """max |a - b| in float32, ``rows`` leading rows at a time (a whole
+    float32 copy of the 10 GB decode cache would not fit beside it)."""
+    return max((float((x.float() - y.float()).abs().max())
+                for x, y in zip(a.split(rows), b.split(rows))), default=0.0)
+
+
 def kv_commit_inputs(rng, n_pages, page, h, n_slots, dtype):
     """A cache drawn on the card from a seeded generator and slot inputs
     drawn with numpy: pages repeat (a pool of n_slots / 4 pages), so do
@@ -410,6 +456,7 @@ def phase_kv_commit():
         assert torch.equal(got_v, exp_v), f"kv_commit versions ({label})"
         changed = int((got_v != versions).sum())
         assert changed > 0, "no page committed"
+        err = max(max_abs_diff(got_c, exp_c), max_abs_diff(got_v, exp_v))
         del exp_c, exp_v
         t = cuda_time_ms(
             lambda: kv_commit.kv_commit_(got_c, got_v, rows, *meta), 200)
@@ -427,7 +474,7 @@ def phase_kv_commit():
             f"place, plain {t_plain:.4f} ms, clone of cache+versions "
             f"{t_clone:.4f} ms, bound {bound_ms:.3e} ms ({nbytes} bytes), "
             f"empty launch {floor:.5f} ms, bitwise equal")
-        out[label] = dict(max_abs_err=0, ms=t, plain_ms=t_plain,
+        out[label] = dict(max_abs_err=err, ms=t, plain_ms=t_plain,
                           bound_ms=bound_ms, bound_by="bytes",
                           library_ms=None, floor_ms=floor,
                           clone_ms=t_clone)
@@ -504,13 +551,44 @@ def phase_serve():
     return params, launches
 
 
-def profile_decode(params, cfg, step_ms):
-    """Device time and kernel launches of PROFILED_STEPS decode steps of
-    a fresh session (torch.profiler), against the unprofiled step time:
-    the device's busy share and the kernels that take it."""
+def device_profile(step, n_steps, step_ms, label):
+    """Device time and kernel launches of ``n_steps`` calls of ``step``
+    (torch.profiler), against the unprofiled step time: the device's
+    busy share and the kernels that take it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log(f"  profile of {label}: the profiler recorded no device time "
+            f"(not measured)")
+        return
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    device_ms = sum(map(sum, by_name.values())) / 1e3 / n_steps
+    log(f"  profile of {n_steps} {label}: "
+        f"{len(kernels) / n_steps:.0f} kernels and {device_ms:.3f} "
+        f"ms of device time per step; busy "
+        f"share {device_ms / step_ms:.3f} of the unprofiled median step")
+    gemm = [t for name, times in by_name.items() for t in times
+            if any(k in name for k in ("nvjet", "gemm", "cutlass", "xmma"))]
+    log(f"    {sum(gemm) / 1e3 / n_steps:8.3f} ms "
+        f"{len(gemm) / n_steps:6.0f}x  cuBLAS matrix products (all names)")
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
+    for name, times in top:
+        log(f"    {sum(times) / 1e3 / n_steps:8.3f} ms "
+            f"{len(times) / n_steps:6.0f}x  {name[:70]}")
+
+
+def profile_decode(params, cfg, step_ms):
+    """Device profile of PROFILED_STEPS decode steps of a fresh session."""
     from repro_torch.serve.session import Session
 
     sess = Session(cfg, params, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
@@ -518,26 +596,7 @@ def profile_decode(params, cfg, step_ms):
     for s in range(SERVE_SLOTS):
         sess.add_request(s, 3 + 7 * s)
     sess.step()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED_STEPS):
-            sess.step()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        log("  profile: the profiler recorded no device time (not measured)")
-        return
-    by_name: dict[str, list] = {}
-    for e in kernels:
-        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    device_ms = sum(map(sum, by_name.values())) / 1e3 / PROFILED_STEPS
-    log(f"  profile of {PROFILED_STEPS} steps: "
-        f"{len(kernels) / PROFILED_STEPS:.0f} kernels and {device_ms:.3f} "
-        f"ms of device time per step; busy "
-        f"share {device_ms / step_ms:.3f} of the unprofiled median step")
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
-    for name, times in top:
-        log(f"    {sum(times) / 1e3 / PROFILED_STEPS:8.3f} ms "
-            f"{len(times) / PROFILED_STEPS:6.0f}x  {name[:70]}")
+    device_profile(sess.step, PROFILED_STEPS, step_ms, "decode steps")
 
 
 def teacher_forced(params, cfg, device, dtype):
@@ -647,6 +706,370 @@ def phase_serve_held(params):
         f"{g.fingerprint():#010x}")
 
 
+def bitwise_equal(got, exp) -> bool:
+    """Pairwise equal tensors, float32 ones compared as bits (so -0.0 and
+    0.0, or two NaN payloads, differ)."""
+    import torch
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    return all(a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+               for a, b in zip(got, exp, strict=True))
+
+
+def adamw_bare(entry, tensors, *sizes):
+    """A launch of an AdamW kernel on ``tensors`` (inputs, then the given
+    outputs) through the same ctypes path as its wrapper, not counted in
+    ``LAUNCHES``: the kernel's time without the wrapper's allocation of
+    fresh outputs, which deterministic mode fills."""
+    import torch
+    from repro_torch.kernels import _build
+    _build.launch("fused_adamw", entry, torch.device("cuda"),
+                  *(t.data_ptr() for t in tensors), *sizes)
+
+
+def phase_adamw():
+    """Both AdamW kernels against their plain versions on the card,
+    bitwise, at the training slice's leaf shapes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_adamw, ops, ref
+
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    hp = fused_adamw.hp_vector(7, lr=TRAIN_LR, b1=0.9, b2=0.999, eps=1e-8,
+                               wd=0.1, device="cuda")
+    step7 = torch.tensor(7.0, device="cuda")
+    shapes = {"embed": (cfg.padded_vocab, cfg.d_model),
+              "w1": (cfg.d_model, cfg.d_ff), "norm": (cfg.d_model,)}
+    out = {}
+    for leaf, shape in shapes.items():
+        n = int(np.prod(shape))
+        p = torch.randn(shape, generator=gen, device="cuda")
+        m = torch.randn(shape, generator=gen, device="cuda") * 0.1
+        v = torch.rand(shape, generator=gen, device="cuda") * 0.01
+        g32 = torch.randn(shape, generator=gen, device="cuda")
+        iters = max(5, min(200, int(2e9 // (n * 28))))
+        for g in (g32, g32.bfloat16()):
+            got = fused_adamw.fused_adamw(p, m, v, g, hp)
+            exp = ref.adamw_ref(p, m, v, g, hp)
+            torch.cuda.synchronize()
+            assert bitwise_equal(got, exp), f"fused_adamw != plain ({leaf})"
+            err = max(float((a - b).abs().max()) for a, b in zip(got, exp))
+            del exp
+            entry = "pot_adamw_bf16g" if g.dtype == torch.bfloat16 \
+                else "pot_adamw_f32g"
+            t = cuda_time_ms(
+                lambda: adamw_bare(entry, (hp, p, m, v, g, *got), n), iters)
+            t_wrap = cuda_time_ms(
+                lambda: fused_adamw.fused_adamw(p, m, v, g, hp), iters)
+            t_plain = cuda_time_ms(lambda: ref.adamw_ref(p, m, v, g, hp),
+                                   2, 1)
+            # the yardstick updates the kernel's outputs in place
+            t_lib = cuda_time_ms(lambda: torch._fused_adamw_(
+                [got[0]], [g32], [got[1]], [got[2]], [], [step7],
+                lr=TRAIN_LR, beta1=0.9, beta2=0.999, weight_decay=0.1,
+                eps=1e-8, amsgrad=False, maximize=False), iters)
+            nbytes = n * (26 if g.dtype == torch.bfloat16 else 28)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            gname = str(g.dtype).split(".")[-1]
+            log(f"fused_adamw {leaf} {shape} g {gname}: kernel {t:.4f} ms "
+                f"({nbytes / t / 1e9:.3f} TB/s), wrapper {t_wrap:.4f} ms, "
+                f"plain {t_plain:.4f} ms, torch._fused_adamw_ (f32 g) "
+                f"{t_lib:.4f} ms, bound {bound_ms:.4f} ms (bytes), "
+                f"bitwise equal")
+            out[(leaf, gname)] = dict(
+                max_abs_err=err, ms=t, plain_ms=t_plain, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=t_lib, wrapper_ms=t_wrap)
+            del got
+        del p, m, v, g32, g
+        torch.cuda.empty_cache()
+
+    # --- speculative: the MLP weight's shape, mixed versions ------------
+    shape = shapes["w1"]
+    rv = 1 << 24
+    rng = np.random.default_rng(SEED)
+    choices = np.array([0, rv - 5, rv, rv + 1, rv + 3, 1 << 30], np.int64)
+    versions_np = rng.choice(choices, (shape[0] // 256, shape[1] // 256))
+    versions_np[0, :len(choices)] = choices       # every case at least once
+    versions_np = versions_np.astype(np.int32)
+    stale_np = versions_np.astype(np.float32) > np.float32(rv)
+    assert not stale_np[versions_np == rv + 1].any()   # 2^24 + 1: fresh
+    versions = torch.from_numpy(versions_np).cuda()
+    p = torch.randn(shape, generator=gen, device="cuda")
+    m = torch.randn(shape, generator=gen, device="cuda") * 0.1
+    v = torch.rand(shape, generator=gen, device="cuda") * 0.01
+    g = torch.randn(shape, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    fused_adamw.reset_launches()
+    got = ops.adamw_update_speculative(p, m, v, g, versions, rv, step=7,
+                                       lr=TRAIN_LR, wd=0.1)
+    torch.cuda.synchronize()
+    launches = fused_adamw.LAUNCHES["fused_adamw_speculative"]
+    assert launches == 1, launches
+    hps = fused_adamw.hp_vector(7, lr=TRAIN_LR, b1=0.9, b2=0.999, eps=1e-8,
+                                wd=0.1, rv=rv, device="cuda")
+    exp = ref.adamw_speculative_ref(p, m, v, g, versions, hps)
+    torch.cuda.synchronize()
+    assert bitwise_equal(got, exp), "fused_adamw_speculative != plain"
+    assert np.array_equal(got[3].cpu().numpy(), stale_np.astype(np.int32))
+    spec_err = max(max_abs_diff(a, b) for a, b in zip(got, exp))
+    del exp
+    t = cuda_time_ms(lambda: adamw_bare(
+        "pot_adamw_spec", (hps, versions, p, m, v, g, *got), *shape), 20)
+    t_wrap = cuda_time_ms(lambda: fused_adamw.fused_adamw_speculative(
+        p, m, v, g, versions, hps), 20)
+    t_plain = cuda_time_ms(lambda: ref.adamw_speculative_ref(
+        p, m, v, g, versions, hps), 2, 1)
+    n_stale = int(stale_np.sum()) * 256 * 256
+    n_fresh = p.numel() - n_stale
+    nbytes = n_fresh * 28 + n_stale * 24 + 8 * versions.numel()
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"fused_adamw_speculative {shape} g float32, rv = 2^24, "
+        f"{int(stale_np.sum())} of {stale_np.size} blocks stale (2^24 + 1 "
+        f"fresh in float32): kernel {t:.4f} ms, wrapper {t_wrap:.4f} ms, "
+        f"plain {t_plain:.4f} ms, bound {bound_ms:.4f} ms (bytes: 28 per "
+        f"fresh element, 24 per stale one), launches in its drive "
+        f"{launches}, bitwise equal")
+    del p, m, v, g, got
+    torch.cuda.empty_cache()
+    results = {
+        "fused_adamw": out[("embed", "float32")],
+        "fused_adamw_speculative": dict(
+            max_abs_err=spec_err, ms=t, plain_ms=t_plain, bound_ms=bound_ms,
+            bound_by="bytes", library_ms=None, wrapper_ms=t_wrap)}
+    return results, launches
+
+
+def tree_digest(tree) -> list[int]:
+    """A 64-bit digest of each leaf's bits: sum of word_i * (2i + 1)
+    modulo 2^64, computed on the card (one changed word changes it)."""
+    import torch
+    from repro_torch.tree import leaves
+    mask = (1 << 64) - 1
+    out = []
+    for t in leaves(tree):
+        flat = t.detach().reshape(-1).view(torch.int32)
+        acc = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for s in range(0, flat.numel(), 1 << 26):
+            w = flat[s:s + (1 << 26)].to(torch.int64)
+            idx = torch.arange(s, s + w.numel(), dtype=torch.int64,
+                               device=w.device)
+            acc += (w * (2 * idx + 1)).sum()
+        out.append(int(acc) & mask)
+    return out
+
+
+def phase_train():
+    """Training at full width, depth cut to TRAIN_LAYERS: two runs of
+    TRAIN_STEPS pot steps from one seed, bitwise equal."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import fused_adamw
+    from repro_torch.models import lm
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    step_fn = make_train_step(cfg, mode="pot", n_microbatches=TRAIN_MICRO,
+                              lr=TRAIN_LR, wd=TRAIN_WD)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_adamw.reset_launches()
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        params = lm.init_params(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg,
+            dtype=torch.float32)
+        before = tree_digest(params)
+        state = init_state(params)
+        del params
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        losses, times = [], []
+        for i in range(TRAIN_STEPS):
+            batch = batch_at(dcfg, i, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        after = tree_digest([state.params, state.opt["m"], state.opt["v"]])
+        counters = (int(state.gv), int(state.step), int(state.opt["step"]))
+        runs.append(dict(losses=torch.stack(losses).cpu(), times=times,
+                         before=before, after=after, counters=counters,
+                         peak=peak, t_init=t_init))
+        if len(runs) == 1:
+            del state
+            torch.cuda.empty_cache()
+    launches = fused_adamw.LAUNCHES["fused_adamw"]
+    a, b = runs
+    n_leaves = len(leaves(state.params))
+    assert torch.equal(a["losses"], b["losses"]), "losses differ"
+    assert a["after"] == b["after"], "parameters or moments differ"
+    assert torch.isfinite(a["losses"]).all(), a["losses"]
+    assert all(x != y for x, y in zip(a["before"], a["after"])), \
+        "a parameter did not move"
+    assert a["counters"] == (TRAIN_STEPS,) * 3, a["counters"]
+    assert launches == 2 * TRAIN_STEPS * n_leaves, launches
+
+    times = a["times"] + b["times"]
+    ms = float(np.median(times)) * 1e3
+    # one optimizer apply on its own, the moments standing in for grads
+    grads = state.opt["m"]
+    t_opt = cuda_time_ms(lambda: optim.adamw_update(
+        state.params, grads, state.opt, lr=TRAIN_LR, wd=TRAIN_WD), 3, 1)
+    n_params = sum(t.numel() for t in leaves(state.params))
+    opt_bound = n_params * 28 / HBM_BYTES_PER_S * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    digest = hashlib.sha256(str(a["after"]).encode()).hexdigest()[:16]
+    log(f"train {cfg.name} cut to {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params:,} float32 parameters in {n_leaves} "
+        f"leaves (init {a['t_init']:.2f} s); pot, {TRAIN_MICRO} "
+        f"microbatches of {TRAIN_BATCH // TRAIN_MICRO} x {TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps x 2 runs: median {ms:.3f} ms per step (first "
+        f"{a['times'][0] * 1e3:.1f} ms), {tokens / ms * 1e3:.1f} tokens/s; "
+        f"optimizer apply {t_opt:.3f} ms ({t_opt / ms:.3f} of a step) "
+        f"against its bound {opt_bound:.3f} ms (28 bytes per parameter); "
+        f"peak allocated {a['peak']:.2f} GB; fused_adamw launches "
+        f"{launches}; runs bitwise identical (losses and {3 * n_leaves} "
+        f"leaves, digest {digest}), gv = step = {TRAIN_STEPS}")
+    log(f"  losses: {a['losses'].tolist()}")
+    del grads
+    batch = batch_at(dcfg, TRAIN_STEPS, device="cuda")
+
+    def profiled_step():
+        nonlocal state
+        state, _ = step_fn(state, batch)
+
+    device_profile(profiled_step, 1, ms, "training step")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_runs(cfg, params, device, steps, dcfg):
+    """``steps`` pot steps from ``params`` (copied to ``device``): the
+    final state and the losses."""
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.models import lm
+    from repro_torch.train import init_state, make_train_step
+    step_fn = make_train_step(cfg, mode="pot", n_microbatches=TRAIN_MICRO,
+                              lr=TRAIN_LR, wd=TRAIN_WD)
+    state, losses = init_state(lm.params_to(params, device)), []
+    for i in range(steps):
+        state, loss = step_fn(state, batch_at(dcfg, i, device=device))
+        losses.append(float(loss))
+    return state, losses
+
+
+def phase_train_held():
+    """The smoke configuration trained on the card against the CPU; the
+    restart on the card; the launcher on the card.
+
+    Card and CPU compute in bf16 with float32 accumulation and round at
+    other places, as the port and the reference do on the CPU, so they
+    are held to the tolerances the port's parity test holds the
+    reference to (tests/test_torch_train.py): over HELD_TRAIN_STEPS
+    steps, losses within rtol 1e-3, each leaf's first moment (the
+    gradients' running sum) within 3e-2 in relative L2 norm and the
+    second (squared gradients) within 6e-2.  The parameters are held
+    after step 1, whose update is lr x (g / |g| + wd p): to rounding
+    (rtol 1e-5, atol 1e-6) wherever |m| is clear of bf16 noise (above
+    3e-2 of the leaf's largest), and elsewhere, where a near-zero
+    gradient may take either sign, within 2 lr (1 + wd |p|).  The
+    restart is held bitwise."""
+    import torch
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+
+    cfg = get_smoke_config(TRAIN_ARCH)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    params = lm.init_params(torch.Generator().manual_seed(SEED), cfg,
+                            dtype=torch.float32)
+    card, card_losses = train_runs(cfg, params, "cuda", HELD_TRAIN_STEPS,
+                                   dcfg)
+    cpu, cpu_losses = train_runs(cfg, params, "cpu", HELD_TRAIN_STEPS, dcfg)
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=1e-3)
+    rel = lambda a, b: float((a.cpu() - b).norm() / b.norm())
+    worst_m = max(rel(a, b) for a, b in zip(leaves(card.opt["m"]),
+                                            leaves(cpu.opt["m"])))
+    worst_v = max(rel(a, b) for a, b in zip(leaves(card.opt["v"]),
+                                            leaves(cpu.opt["v"])))
+    assert worst_m <= 3e-2 and worst_v <= 6e-2, (worst_m, worst_v)
+    assert int(card.gv) == int(cpu.gv) == HELD_TRAIN_STEPS
+
+    card1, _ = train_runs(cfg, params, "cuda", 1, dcfg)
+    cpu1, _ = train_runs(cfg, params, "cpu", 1, dcfg)
+    n_clear = n_all = 0
+    worst_clear = worst_sign = 0.0
+    for a, b, m in zip(leaves(card1.params), leaves(cpu1.params),
+                       leaves(cpu1.opt["m"])):
+        a = a.cpu()
+        clear = m.abs() > 3e-2 * m.abs().max()
+        assert clear.any()
+        np.testing.assert_allclose(a[clear].numpy(), b[clear].numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        worst_clear = max(worst_clear, float(
+            ((a - b).abs() / (1e-6 + 1e-5 * b.abs()))[clear].max()))
+        limit = 2 * TRAIN_LR * (1 + TRAIN_WD * float(b.abs().max())) + 1e-6
+        d = float((a - b).abs().max())
+        assert d <= limit, (d, limit)
+        worst_sign = max(worst_sign, d / limit)
+        n_clear += int(clear.sum())
+        n_all += clear.numel()
+    log(f"train held to account ({cfg.name}, {HELD_TRAIN_STEPS} pot steps, "
+        f"card vs CPU): losses {card_losses} vs {cpu_losses}; moments "
+        f"relative L2 at most m {worst_m:.3e} (<= 3e-2), v {worst_v:.3e} "
+        f"(<= 6e-2); parameters after step 1: {n_clear} of {n_all} clear "
+        f"of bf16 noise, at most {worst_clear:.3f} of rounding (rtol 1e-5, "
+        f"atol 1e-6), the rest at most {worst_sign:.3f} of 2 lr (1 + wd |p|)")
+
+    # restart on the card: 4 straight == 2 + save + restore + 2
+    straight, losses = train_runs(cfg, params, "cuda", 4, dcfg)
+    with tempfile.TemporaryDirectory() as d:
+        half, _ = train_runs(cfg, params, "cuda", 2, dcfg)
+        ck.save(d, 2, half, extra={"data_step": 2})
+        fresh, _ = train_runs(cfg, params, "cuda", 0, dcfg)
+        resumed, extra = ck.restore(d, 2, fresh)
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.train import make_train_step
+    step_fn = make_train_step(cfg, mode="pot", n_microbatches=TRAIN_MICRO,
+                              lr=TRAIN_LR, wd=TRAIN_WD)
+    again = []
+    for i in range(extra["data_step"], 4):
+        resumed, loss = step_fn(resumed, batch_at(dcfg, i, device="cuda"))
+        again.append(float(loss))
+    assert again == losses[2:], (again, losses)
+    assert bitwise_equal(leaves(straight), leaves(resumed)), \
+        "restart differs"
+    log(f"  restart on the card: 4 steps straight == 2 + save + restore + "
+        f"2, bitwise on all {len(leaves(straight))} leaves and the losses")
+
+    # the launcher, on the card
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             TRAIN_ARCH, "--smoke", "--steps", "4", "--ckpt-dir", d],
+            capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.rstrip().endswith("done"), proc.stdout
+    lines = proc.stdout.strip().splitlines()
+    log(f"  launcher on the card, exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s: {lines[0]} | {lines[-2]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -670,12 +1093,19 @@ def main() -> int:
     stream, extra = wls[:N_BATCHES], wls[N_BATCHES]
     kernels = phase_kernels(stream[0].batch.to("cuda"))
     kernels["kv_commit"] = phase_kv_commit()
+    adamw, spec_launches = phase_adamw()
+    kernels.update(adamw)
     gpu_session, gpu_traces, launches = phase_main_path(stream)
     phase_held_to_account(stream, gpu_session, gpu_traces)
     phase_round_breakdown(extra)
     del gpu_session, gpu_traces
     params, launches["kv_commit"] = phase_serve()
     phase_serve_held(params)
+    del params                # the 24 GB of serving weights
+    torch.cuda.empty_cache()
+    launches["fused_adamw"] = phase_train()
+    launches["fused_adamw_speculative"] = spec_launches
+    phase_train_held()
 
     summary = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

@@ -21,14 +21,16 @@ from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = {"conflict": _HERE / "csrc" / "conflict.cu",
-           "kv_commit": _HERE / "csrc" / "kv_commit.cu"}
+           "kv_commit": _HERE / "csrc" / "kv_commit.cu",
+           "fused_adamw": _HERE / "csrc" / "fused_adamw.cu"}
 BUILD_DIR = _HERE / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C signature of every entry point: argtypes (each pointer and the
-# stream as c_void_p, each size as c_int); all return cudaError_t as int
+# stream as c_void_p, each size as c_int, or c_int64 where it may pass
+# 2^31); all return cudaError_t as int
 SIGNATURES = {
     "conflict": {
         "pot_conflict_pair": [_P, _P, _P, _I, _I, _I, _P],
@@ -38,6 +40,11 @@ SIGNATURES = {
         "pot_kv_commit_f32": [_P] * 7 + [_I] * 4 + [_P],
         "pot_kv_commit_bf16": [_P] * 7 + [_I] * 4 + [_P],
         "pot_empty_launch": [_P],
+    },
+    "fused_adamw": {
+        "pot_adamw_f32g": [_P] * 8 + [_L, _P],
+        "pot_adamw_bf16g": [_P] * 8 + [_L, _P],
+        "pot_adamw_spec": [_P] * 10 + [_L, _L, _P],
     },
 }
 

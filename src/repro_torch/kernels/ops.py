@@ -1,6 +1,8 @@
 """Plumbing around the kernels, after ``repro.kernels.ops``: the
-conflict-table updates of the round protocol (dense store) and the
-ordered paged commit of the serving path (``kv_cache_commit``).
+conflict-table updates of the round protocol (dense store), the
+ordered paged commit of the serving path (``kv_cache_commit``) and the
+fused AdamW commit of the training path (``adamw_update`` and its
+speculative variant).
 
 The reference takes its Pallas kernels only on a TPU (``_on_tpu()``) and
 otherwise dense fallbacks.  Here ``_on_cuda`` takes that place: the
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.core.txn import scatter_rows
 from repro_torch.kernels import conflict as _conf
+from repro_torch.kernels import fused_adamw as _adamw
 from repro_torch.kernels import kv_commit as _kvc
 from repro_torch.kernels import validate as _val
 
@@ -128,3 +131,25 @@ def kv_cache_commit(cache, versions, rows, page_idx, row_idx, sn, commit):
     new ``(cache, versions)``; the inputs are left as they were."""
     return _kvc.kv_commit(cache, versions, rows, page_idx, row_idx, sn,
                           commit)
+
+
+def adamw_update(p, m, v, g, *, step, lr=1e-3, b1=0.9, b2=0.999,
+                 eps=1e-8, wd=0.01):
+    """Fast-mode fused AdamW over a float32 parameter leaf of any shape
+    (``g`` float32 or bfloat16): returns new ``(p, m, v)``.  ``step`` is
+    the step being taken (1 for the first), a number or a tensor on the
+    leaf's device.  The update is elementwise, so no leaf is padded: the
+    kernel takes any length."""
+    hp = _adamw.hp_vector(step, lr=lr, b1=b1, b2=b2, eps=eps, wd=wd,
+                          device=p.device)
+    return _adamw.fused_adamw(p, m, v, g, hp)
+
+
+def adamw_update_speculative(p, m, v, g, versions, rv, *, step, lr=1e-3,
+                             b1=0.9, b2=0.999, eps=1e-8, wd=0.01):
+    """Speculative fused AdamW of a (R, C) leaf, R and C multiples of 256:
+    ``versions`` (R / 256, C / 256) int32, ``rv`` the read version (a
+    number or a tensor).  Returns new ``(p, m, v, abort)``."""
+    hp = _adamw.hp_vector(step, lr=lr, b1=b1, b2=b2, eps=eps, wd=wd, rv=rv,
+                          device=p.device)
+    return _adamw.fused_adamw_speculative(p, m, v, g, versions, hp)

@@ -1,12 +1,13 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-They compute exactly what ``csrc/conflict.cu`` and ``csrc/kv_commit.cu``
-compute and are what the kernel wrappers in
-:mod:`repro_torch.kernels.conflict` and :mod:`repro_torch.kernels.kv_commit`
-run on CPU tensors.  The full (M, N, W) broadcast of the reference's
-``conflict_matrix_bits_ref`` is 34 G elements at the main path's shapes
-(K = 1024, W = 32768), so both work in blocks of rows and words whose
-broadcast stays under ``_BLOCK_ELEMS`` elements.
+They compute exactly what ``csrc/conflict.cu``, ``csrc/kv_commit.cu``
+and ``csrc/fused_adamw.cu`` compute and are what the kernel wrappers in
+:mod:`repro_torch.kernels.conflict`, :mod:`repro_torch.kernels.kv_commit`
+and :mod:`repro_torch.kernels.fused_adamw` run on CPU tensors.  The
+full (M, N, W) broadcast of the reference's ``conflict_matrix_bits_ref``
+is 34 G elements at the main path's shapes (K = 1024, W = 32768), so the
+conflict versions work in blocks of rows and words whose broadcast stays
+under ``_BLOCK_ELEMS`` elements.
 """
 
 from __future__ import annotations
@@ -82,3 +83,42 @@ def kv_commit_ref(cache, versions, rows, page_idx, row_idx, sn, commit):
     """Functional :func:`kv_commit_ref_`: commits into copies."""
     return kv_commit_ref_(cache.clone(), versions.clone(), rows, page_idx,
                           row_idx, sn, commit)
+
+
+def adamw_ref(p, m, v, g, hp):
+    """One AdamW step, ``(p', m', v')``, with the hyperparameters read from
+    the (1, 8) float32 vector ``hp`` = [lr, b1, b2, eps, wd, bc1, bc2, rv]
+    on the tensors' device.
+
+    The operations and their order are the Pallas kernel's
+    (``repro/kernels/fused_adamw.py``), each one rounded to float32:
+    ``1 - b1`` is the float32 difference of float32 ``b1`` (0.100000024
+    for 0.9), where ``repro.kernels.ref.adamw_ref`` takes it from the
+    Python float (float32 0.1)."""
+    lr, b1, b2, eps, wd, bc1, bc2 = hp[0, :7]
+    g = g.float()
+    m2 = b1 * m + (1.0 - b1) * g
+    v2 = b2 * v + (1.0 - b2) * g * g
+    mhat = m2 / bc1
+    vhat = v2 / bc2
+    p2 = p - lr * (mhat / (torch.sqrt(vhat) + eps) + wd * p)
+    return p2, m2, v2
+
+
+def adamw_speculative_ref(p, m, v, g, versions, hp, block=256):
+    """:func:`adamw_ref` on each (block, block) block of a (R, C) leaf
+    whose version, converted to float32, is at most ``hp[0, 7]`` (the
+    read version ``rv``); a stale block keeps p, m and v.  Returns
+    ``(p', m', v', abort)``, abort (R / block, C / block) int32.
+
+    The Pallas kernel compares in float32, so above 2^24 a version may
+    round down to ``rv``: version 2^24 + 1 against rv 2^24 is not stale
+    here, though ``repro.kernels.ref.adamw_speculative_ref``, comparing
+    integers, finds it stale."""
+    p2, m2, v2 = adamw_ref(p, m, v, g, hp)
+    stale = versions.float() > hp[0, 7]
+    gr, gc = stale.shape
+    big = stale[:, None, :, None].expand(gr, block, gc, block).reshape(
+        p.shape)
+    return (torch.where(big, p, p2), torch.where(big, m, m2),
+            torch.where(big, v, v2), stale.to(torch.int32))

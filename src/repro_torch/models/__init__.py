@@ -1,2 +1,3 @@
-"""Model math of the serving path: configuration, decode-time layer
-primitives (``blocks``) and the decode step of the LM (``lm``)."""
+"""Model math of the serving and training paths: configuration, layer
+primitives (``blocks``), and the LM's forward pass and decode step
+(``lm``)."""

@@ -1,22 +1,28 @@
-"""Layer primitives of the decode path, after ``repro.models.blocks``.
+"""Layer primitives of the decode and training paths, after
+``repro.models.blocks``.
 
 Conventions, as in the reference:
-- activations are computed in the parameters' dtype.  The reference
-  stores float32 and casts to bf16 at every use (``_cast``); the port
-  stores bf16 (``C``), which is exactly what that cast gives, and so
+- the training path keeps float32 master weights and casts them to
+  bf16 (``C``) at each use (``_cast``), as the reference does for every
+  weight;
+- the decode path computes in the parameters' dtype.  The serving path
+  stores bf16, which is exactly what the reference's cast gives, and so
   computes in bf16 too.  Parameters stored in float32 give the same
-  algorithm in float32 (a check of the math free of bf16 rounding);
+  algorithm in float32 there (a check of the math free of bf16
+  rounding);
 - norms, RoPE, attention scores and the softmax accumulate in float32,
   and probabilities are cast to the compute dtype before the value
   product;
 - masked scores are ``NEG`` (a large finite negative), not ``-inf``.
 
-Only what one-token decoding of global-attention layers needs is here:
-RMSNorm, RoPE, grouped decode attention (whole-cache and chunked
-online-softmax forms) and the SwiGLU / GELU MLP.  The train and prefill
-attention (``attend_full``, ``attend_window_banded``, ``attn_apply``)
-is not ported yet.  The reference's sharding constraints are identities
-on one card and are left out.
+Here: RMSNorm, RoPE, the full-sequence attention of training
+(``attn_apply`` over ``attend_full``, with grouped KV repeated to full
+heads, optionally in query chunks), grouped decode attention
+(whole-cache and chunked online-softmax forms) and the SwiGLU / GELU
+MLP.  The sliding-window attention (``attend_window_banded``, the
+``"local"`` kind) is not ported yet, and ``attn_apply`` does not return
+the K/V rows that prefill would cache.  The reference's sharding
+constraints are identities on one card and are left out.
 """
 
 from __future__ import annotations
@@ -29,15 +35,25 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 
-C = torch.bfloat16  # storage (and so compute) dtype of the weights
+C = torch.bfloat16  # compute dtype; the serving path stores its weights in it
 NEG = -1e30
 
 
-def _normal(gen: torch.Generator, shape, std: float) -> torch.Tensor:
+def _normal(gen: torch.Generator, shape, std: float,
+            dtype=C) -> torch.Tensor:
     """N(0, std²) drawn in float32 on the generator's device, then stored
-    in bf16 at once (no float32 copy of a weight outlives the call)."""
+    in ``dtype`` at once (no float32 copy of a bf16 weight outlives the
+    call)."""
     return (torch.randn(shape, generator=gen, device=gen.device,
-                        dtype=torch.float32) * std).to(C)
+                        dtype=torch.float32) * std).to(dtype)
+
+
+def _cast(p: dict) -> dict:
+    """A layer's parameters as used: every float32 tensor of the (nested)
+    dict cast to ``C``, the others as they are."""
+    return {k: _cast(a) if isinstance(a, dict) else
+            a.to(C) if a.dtype == torch.float32 else a
+            for k, a in p.items()}
 
 
 # --------------------------------------------------------------- norms/rope
@@ -77,6 +93,47 @@ def apply_rope(x, sin, cos):
 
 
 # ---------------------------------------------------------------- attention
+def _repeat_kv(k, g):
+    """(B, S, KV, hd) -> (B, S, KV*g, hd): grouped KV expanded to full
+    heads for the training path (decode keeps the grouped form)."""
+    if g == 1:
+        return k
+    b, s, kv, hd = k.shape
+    return k[:, :, :, None].expand(b, s, kv, g, hd).reshape(b, s, kv * g, hd)
+
+
+def _sdpa_flat(q, k, v, mask):
+    """q (B,Q,H,hd), k/v (B,S,H,hd) in the compute dtype, mask (B,Q,S) or
+    (Q,S) bool.  Scores in float32 (the reference's
+    ``preferred_element_type``)."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
+    if mask.dim() == 2:
+        mask = mask[None]
+    scores = torch.where(mask[:, None], scores, NEG)   # (B,1,Q,S) broadcast
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", probs, v)
+
+
+def attend_full(q, k, v, q_pos, kv_pos, *, chunk=0):
+    """Exact causal attention; q (B,Q,H,hd) against k/v (B,S,H,hd) (KV
+    already repeated to full heads).  q_pos (B, Q) / kv_pos (B, S) are
+    absolute positions for the causal mask.  ``chunk > 0`` computes the
+    queries ``chunk`` at a time (bounded score memory); Q must then be a
+    multiple of ``chunk``."""
+    def mask_for(qp):
+        return kv_pos[:, None, :] <= qp[:, :, None]
+
+    nq = q.shape[1]
+    if not chunk or nq <= chunk:
+        return _sdpa_flat(q, k, v, mask_for(q_pos))
+    if nq % chunk:
+        raise ValueError(f"{nq} queries are not a multiple of chunk {chunk}")
+    return torch.cat([
+        _sdpa_flat(q[:, i:i + chunk], k, v, mask_for(q_pos[:, i:i + chunk]))
+        for i in range(0, nq, chunk)], dim=1)
+
+
 def _sdpa(q, k, v, mask):
     """Grouped decode attention: q (B,Q,KV,G,hd), k/v (B,S,KV,hd) in
     the compute dtype, mask (B,Q,S) or (Q,S) bool.  Scores in float32
@@ -127,18 +184,43 @@ def _decode_attend_chunked(q, cache_k, cache_v, mask, chunk=2048):
     return out[:, None].to(q.dtype)                         # (B,1,KV,G,hd)
 
 
-def init_attn(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_attn(gen: torch.Generator, cfg: ModelConfig, dtype=C) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     std = d ** -0.5
-    p = {"wq": _normal(gen, (d, h * hd), std),
-         "wk": _normal(gen, (d, kv * hd), std),
-         "wv": _normal(gen, (d, kv * hd), std),
-         "wo": _normal(gen, (h * hd, d), std)}
+    p = {"wq": _normal(gen, (d, h * hd), std, dtype),
+         "wk": _normal(gen, (d, kv * hd), std, dtype),
+         "wv": _normal(gen, (d, kv * hd), std, dtype),
+         "wo": _normal(gen, (h * hd, d), std, dtype)}
     if cfg.qkv_bias:
         for name, width in (("bq", h * hd), ("bk", kv * hd),
                             ("bv", kv * hd)):
-            p[name] = torch.zeros((width,), dtype=C, device=gen.device)
+            p[name] = torch.zeros((width,), dtype=dtype, device=gen.device)
     return p
+
+
+def attn_apply(p, x, cfg: ModelConfig, *, positions=None, chunk=0):
+    """Causal self-attention over the full sequence (training).  x
+    (B, S, D) at ``positions`` (B, S), 0..S-1 by default.  Weights are
+    cast to ``C`` at use."""
+    p = _cast(p)
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    sin, cos = rope_tables(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    out = attend_full(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv),
+                      positions, positions, chunk=chunk)
+    return out.reshape(b, s, h * hd) @ p["wo"]
 
 
 def attn_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig):
@@ -183,16 +265,17 @@ def attn_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig):
 
 
 # --------------------------------------------------------------------- MLP
-def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff=None) -> dict:
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff=None,
+             dtype=C) -> dict:
     d = cfg.d_model
     f = d_ff or cfg.d_ff
     std = d ** -0.5
     if cfg.mlp == "swiglu":
-        return {"w1": _normal(gen, (d, f), std),
-                "w3": _normal(gen, (d, f), std),
-                "w2": _normal(gen, (f, d), std)}
-    return {"w1": _normal(gen, (d, f), std),
-            "w2": _normal(gen, (f, d), std)}
+        return {"w1": _normal(gen, (d, f), std, dtype),
+                "w3": _normal(gen, (d, f), std, dtype),
+                "w2": _normal(gen, (f, d), std, dtype)}
+    return {"w1": _normal(gen, (d, f), std, dtype),
+            "w2": _normal(gen, (f, d), std, dtype)}
 
 
 def mlp_apply(p, x, cfg: ModelConfig):

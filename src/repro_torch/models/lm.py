@@ -1,4 +1,5 @@
-"""The LM's decode step, after ``repro.models.lm`` (decode subset).
+"""The LM's forward pass (training) and decode step (serving), after
+``repro.models.lm``.
 
 The reference stacks each pattern slot's parameters and caches along a
 leading (n_groups,) axis and scans over groups.  Here ``params["layers"]``
@@ -8,27 +9,30 @@ loop over layers.  The decode cache is updated in place.
 
 Ported: layers of the ``"attn"`` kind with a SwiGLU or GELU MLP and
 optional QKV bias — stablelm, qwen1.5, starcoder2 and internvl2's
-backbone.  The other layer kinds, MoE and cross-attention raise
-``NotImplementedError``, as do ``prefill`` and ``forward`` by their
-absence (ROADMAP queue 1 item 12).
+backbone (with its stub vision prefix).  The other layer kinds, MoE and
+cross-attention raise ``NotImplementedError``, as does ``prefill`` by
+its absence (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks
-from repro_torch.models.blocks import C, _normal, rmsnorm
+from repro_torch.models.blocks import C, _cast, _normal, rmsnorm
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_map
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port's decode path does
-    not cover yet."""
+    """Raise ``NotImplementedError`` for what the port's model does not
+    cover yet."""
     for kind in cfg.pattern:
         if kind != "attn":
             raise NotImplementedError(
-                f"{cfg.name}: decode of {kind!r} layers is not ported yet "
+                f"{cfg.name}: {kind!r} layers are not ported yet "
                 f"(ROADMAP queue 1 item 12)")
     if cfg.n_experts:
         raise NotImplementedError(
@@ -43,21 +47,25 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 # ------------------------------------------------------------------ params
-def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                dtype=C) -> dict:
     """Random parameters with the reference's shapes and distributions,
-    drawn from ``generator`` on its device and stored in bf16.  The
-    values are the port's own: a torch generator does not reproduce the
+    drawn from ``generator`` on its device and stored in ``dtype``: bf16
+    for serving, float32 for the master weights of training.  The values
+    are the port's own: a torch generator does not reproduce the
     reference's threefry draws."""
     check_supported(cfg)
     d = cfg.d_model
-    ones = lambda: torch.ones((d,), dtype=C, device=generator.device)
-    params = {"embed": _normal(generator, (cfg.padded_vocab, d), 0.02),
+    ones = lambda: torch.ones((d,), dtype=dtype, device=generator.device)
+    params = {"embed": _normal(generator, (cfg.padded_vocab, d), 0.02,
+                               dtype),
               "final_norm": ones()}
     if not cfg.tie_embeddings:
-        params["head"] = _normal(generator, (d, cfg.padded_vocab), 0.02)
+        params["head"] = _normal(generator, (d, cfg.padded_vocab), 0.02,
+                                 dtype)
     params["layers"] = [
-        {"ln1": ones(), "attn": blocks.init_attn(generator, cfg),
-         "ln2": ones(), "mlp": blocks.init_mlp(generator, cfg)}
+        {"ln1": ones(), "attn": blocks.init_attn(generator, cfg, dtype),
+         "ln2": ones(), "mlp": blocks.init_mlp(generator, cfg, dtype=dtype)}
         for _ in range(cfg.n_layers)]
     return params
 
@@ -65,11 +73,51 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
 def params_to(params, device, dtype=None):
     """A copy of a parameter tree (dicts and lists of tensors) on
     ``device``, cast to ``dtype`` where one is given."""
-    if isinstance(params, dict):
-        return {k: params_to(v, device, dtype) for k, v in params.items()}
-    if isinstance(params, list):
-        return [params_to(v, device, dtype) for v in params]
-    return params.to(device=device, dtype=dtype)
+    return tree_map(lambda t: t.to(device=device, dtype=dtype), params)
+
+
+# ----------------------------------------------------------------- forward
+def _sublayer(p, x, cfg: ModelConfig, positions, chunk):
+    """One ``"attn"`` layer of the trunk, its weights cast to ``C`` here
+    (so a rematerialised layer recasts them instead of keeping them)."""
+    p = _cast(p)
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    x = x + blocks.attn_apply(p["attn"], h, cfg, positions=positions,
+                              chunk=chunk)
+    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + blocks.mlp_apply(p["mlp"], h, cfg)
+
+
+def trunk(params, x, cfg: ModelConfig, *, positions, chunk=0, remat=False):
+    """The layers over x (B, S, D).  ``remat`` recomputes each layer in
+    the backward pass instead of keeping its activations
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``)."""
+    for p in params["layers"]:
+        if remat:
+            x = checkpoint(_sublayer, p, x, cfg, positions, chunk,
+                           use_reentrant=False)
+        else:
+            x = _sublayer(p, x, cfg, positions, chunk)
+    return x
+
+
+def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
+            chunk=0, remat=False):
+    """tokens (B, S_t) int -> logits (B, S_total, padded_vocab) in bf16.
+
+    ``prefix_embeds`` (B, Np, D): stub frontend output (vision patches),
+    prepended to the token embeddings (internvl2).  ``chunk`` as in
+    :func:`repro_torch.models.blocks.attend_full`."""
+    check_supported(cfg)
+    x = F.embedding(tokens, params["embed"].to(C))           # (B, S_t, D)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(C), x], dim=1)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    x = trunk(params, x, cfg, positions=positions, chunk=chunk, remat=remat)
+    x = rmsnorm(x, params["final_norm"].to(C), cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return x @ head.to(C)
 
 
 # ------------------------------------------------------------------- cache

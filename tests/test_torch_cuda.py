@@ -1,12 +1,21 @@
 """The hand-written CUDA kernels against their plain versions, on the
-card: bitwise equality on ragged and main-path shapes, launch counting,
-a small stream through the card's matrix formulation equal to the CPU's
-scatter-min run, and the serving session on the card against the CPU's.  Marked ``cuda``; each test skips where
-``torch.cuda.is_available()`` is false (decided inside the fixture, not
-at import).  Run on a GPU machine with
+card: bitwise equality on ragged and main-path shapes (the AdamW
+kernels also on unaligned views and a leaf of more than 2^31 bytes),
+launch counting, a small stream through the card's matrix formulation
+equal to the CPU's scatter-min run, the serving session on the card
+against the CPU's, and a Pot train step on the card run twice, bitwise.
+Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
+false (decided inside the fixture, not at import).  Run on a GPU machine
+with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+
+import os
+
+# cuBLAS is deterministic under torch's deterministic mode only with a
+# fixed workspace, set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np
 import pytest
@@ -19,9 +28,12 @@ from repro_torch.core import workloads as W
 from repro_torch.core.engine import TRACE_FIELDS
 from repro_torch.core.session import PotSession
 from repro_torch.configs import get_smoke_config
-from repro_torch.kernels import conflict, kv_commit, ref
+from repro_torch.data.pipeline import DataConfig, batch_at
+from repro_torch.kernels import conflict, fused_adamw, kv_commit, ref
 from repro_torch.models import lm
 from repro_torch.serve.session import Session
+from repro_torch.train import init_state, make_train_step
+from repro_torch.tree import leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -162,3 +174,105 @@ def test_session_on_card_commits_like_cpu(cuda):
     assert torch.equal(card.page_meta.cpu(), cpu.page_meta)
     assert torch.equal(card.page_versions.cpu(), cpu.page_versions)
     assert card.fingerprint() == cpu.fingerprint()
+
+
+def _bits_equal(got, exp):
+    return all(a.dtype == b.dtype and torch.equal(
+        a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, exp))
+
+
+def _adamw_inputs(n, gdtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = torch.randn(n, generator=gen, device=device)
+    m = torch.randn(n, generator=gen, device=device) * 0.1
+    v = torch.rand(n, generator=gen, device=device) * 0.01
+    g = torch.randn(n, generator=gen, device=device).to(gdtype)
+    return p, m, v, g
+
+
+@pytest.mark.parametrize("shape", [
+    (1,), (3,), (1001, 333), (5120,), (5120, 13824),
+    ((1 << 29) + 3,),   # 2.1 GB a tensor: 64-bit offsets, ragged tail
+])
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+def test_adamw_kernel_equals_plain(cuda, shape, gdtype):
+    n = int(np.prod(shape))
+    p, m, v, g = (t.reshape(shape) for t in _adamw_inputs(
+        n, gdtype, cuda, n % 1000))
+    hp = fused_adamw.hp_vector(7, lr=3e-4, b1=0.9, b2=0.999, eps=1e-8,
+                               wd=0.1, device=cuda)
+    fused_adamw.reset_launches()
+    got = fused_adamw.fused_adamw(p, m, v, g, hp)
+    torch.cuda.synchronize()
+    assert fused_adamw.LAUNCHES["fused_adamw"] == 1
+    assert _bits_equal(got, ref.adamw_ref(p, m, v, g, hp))
+
+
+def test_adamw_kernel_on_unaligned_views(cuda):
+    """Views one element into their storage: not 16-byte aligned, so the
+    kernel takes its one-element path."""
+    p, m, v, g = _adamw_inputs(4099, torch.bfloat16, cuda, 1)
+    hp = fused_adamw.hp_vector(3, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                               wd=0.01, device=cuda)
+    args = [t[1:] for t in (p, m, v, g)]
+    got = fused_adamw.fused_adamw(*args, hp)
+    assert _bits_equal(got, ref.adamw_ref(*args, hp))
+
+
+@pytest.mark.parametrize("shape,gdtype", [
+    ((256, 256), torch.float32), ((512, 768), torch.bfloat16),
+    ((1280, 2560), torch.float32),
+])
+def test_adamw_speculative_kernel_equals_plain(cuda, shape, gdtype):
+    """Versions that are fresh, stale, and 2^24 + 1 against rv = 2^24
+    (fresh: it rounds to 2^24 in float32, as the Pallas kernel compares)."""
+    rv = 1 << 24
+    rng = np.random.default_rng(shape[1])
+    grid = (shape[0] // 256, shape[1] // 256)
+    versions_np = rng.choice(
+        np.array([0, rv, rv + 1, rv + 3, 1 << 30], np.int64), grid)
+    versions = torch.from_numpy(versions_np.astype(np.int32)).to(cuda)
+    p, m, v, g = (t.reshape(shape) for t in _adamw_inputs(
+        shape[0] * shape[1], gdtype, cuda, 2))
+    hp = fused_adamw.hp_vector(5, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                               wd=0.01, rv=rv, device=cuda)
+    fused_adamw.reset_launches()
+    got = fused_adamw.fused_adamw_speculative(p, m, v, g, versions, hp)
+    torch.cuda.synchronize()
+    assert fused_adamw.LAUNCHES["fused_adamw_speculative"] == 1
+    exp = ref.adamw_speculative_ref(p, m, v, g, versions, hp)
+    assert _bits_equal(got[:3], exp[:3]) and torch.equal(got[3], exp[3])
+    stale = versions_np.astype(np.float32) > np.float32(rv)
+    np.testing.assert_array_equal(got[3].cpu().numpy(), stale)
+
+
+def test_pot_train_step_on_card_twice_bitwise(cuda):
+    """Two runs of three Pot steps (two microbatches) of the smoke
+    configuration from one seed, under deterministic mode: losses and
+    every leaf of the state bitwise equal, one kernel launch per
+    parameter leaf per step."""
+    cfg = get_smoke_config("stablelm-12b")
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    step = make_train_step(cfg, mode="pot", n_microbatches=2)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for _ in range(2):
+            fused_adamw.reset_launches()
+            state = init_state(lm.init_params(
+                torch.Generator(device=cuda).manual_seed(0), cfg,
+                dtype=torch.float32))
+            losses = []
+            for i in range(3):
+                state, loss = step(state, batch_at(dcfg, i, device=cuda))
+                losses.append(loss)
+            runs.append((state, torch.stack(losses),
+                         fused_adamw.LAUNCHES["fused_adamw"]))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (a, la, na), (b, lb, nb) = runs
+    assert na == nb == 3 * len(leaves(a.params))
+    assert torch.equal(la, lb) and torch.isfinite(la).all()
+    assert all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+    assert int(a.gv) == int(a.step) == 3

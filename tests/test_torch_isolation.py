@@ -41,7 +41,11 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "repro_torch.kernels.conflict, repro_torch.kernels.kv_commit, "
         "repro_torch.convert, repro_torch.core.workloads, "
         "repro_torch.core.oracle, repro_torch.models.lm, "
-        "repro_torch.serve.session, repro_torch.launch.serve\n"
+        "repro_torch.serve.session, repro_torch.launch.serve, "
+        "repro_torch.kernels.fused_adamw, repro_torch.optim, "
+        "repro_torch.train, repro_torch.data.pipeline, "
+        "repro_torch.ckpt.checkpoint, repro_torch.core.checkpoint, "
+        "repro_torch.launch.train, repro_torch.tree\n"
         "from repro_torch.configs import get_config\n"
         "get_config('stablelm-12b')\n"
         "from repro_torch.kernels import _build\n"
