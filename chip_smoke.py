@@ -73,7 +73,32 @@ Phases, each printing its own lines:
    ``phase_train_held``); on
    the card 4 steps straight bitwise equal to 2 steps, a checkpoint, a
    restore and 2 more; and ``python -m repro_torch.launch.train --arch
-   stablelm-12b --smoke --steps 4`` on the card.
+   stablelm-12b --smoke --steps 4`` on the card;
+2d. (run after 2c) TL2 read-set validation: the read sets of phase 3's
+   first batch (K = 1024, L = 16, packed to W = 32,768 words) against the
+   written set of its first 512 transactions in sequence order, through
+   the entry point ``ops.validate`` on the card with the validation
+   kernel's launch count read around that call alone; then the kernel
+   against its plain version bitwise (also at (1000, 32768) and the
+   ragged (1000, 32767)), against an independent answer from the pair
+   kernel (the OR over the 512 writers' columns of its strip), and the
+   entry point on the card against the CPU.  Its time, the plain
+   version's, one ``torch.matmul`` of 0/1 bf16 masks (a yardstick the
+   port never calls) and the bound;
+10. (run last) the four engines at the main path's size, one batch each
+   (phase 3's first: K = 1024, O = 1,048,576, 8 lanes; the cut is to one
+   batch per engine, never K or O): PCC, PoGL, DeSTM and OCC through
+   ``PotSession.submit``, DeSTM's serial token walk and OCC under a
+   seeded random arrival through ``destm_execute`` / ``occ_execute``,
+   each with the conflict kernels' launches counted around it.  PoGL and
+   both DeSTM walks must equal the numpy serial oracle and PCC's
+   fingerprint, DeSTM's two walks every trace field but the wave
+   counts; OCC's commit order replayed through PCC must give OCC's
+   store, and its two arrivals two outcomes (else a small batch shows
+   the witness); every run equals the port's CPU run of the same
+   engine and arrival in every trace field.  Per engine: ms per batch,
+   txns/s, rounds, ``wave_trips``, ``retry_waves``, ``barrier_ops`` and
+   the launches (OCC's delta and pair, DeSTM's pair must be > 0).
 
 The second line from the end is the kernels' JSON summary and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -105,6 +130,8 @@ N_LANES = 8
 N_BATCHES = 4
 SEED = 0
 STRIP = 256             # the compact rung below K = 1024
+VALIDATE_PREFIX = 512   # phase 2d: the writers of the validated set
+ENGINES_CPU_K = 256     # phase 10: the card against the CPU at this K
 
 SERVE_ARCH = "stablelm-12b"
 SERVE_SLOTS = 8
@@ -136,6 +163,7 @@ SOURCES = {
     "kv_commit": "src/repro_torch/kernels/csrc/kv_commit.cu",
     "fused_adamw": "src/repro_torch/kernels/csrc/fused_adamw.cu",
     "fused_adamw_speculative": "src/repro_torch/kernels/csrc/fused_adamw.cu",
+    "validate_bitsets": "src/repro_torch/kernels/csrc/validate.cu",
 }
 REPLACES = {
     "conflict_matrix_bits_pair": "src/repro/kernels/conflict.py:132",
@@ -143,6 +171,7 @@ REPLACES = {
     "kv_commit": "src/repro/kernels/kv_commit.py:52",
     "fused_adamw": "src/repro/kernels/fused_adamw.py:87",
     "fused_adamw_speculative": "src/repro/kernels/fused_adamw.py:120",
+    "validate_bitsets": "src/repro/kernels/validate.py:43",
 }
 
 
@@ -381,6 +410,244 @@ def phase_round_breakdown(wl):
         total += ms
         log(f"  {ms:9.3f} ms  {name}")
     log(f"  {total:9.3f} ms  sum")
+
+
+def phase_validate(wl):
+    """The TL2 validation kernel, driven through its entry point
+    ``ops.validate`` (counted), then held against its plain version, the
+    pair kernel and the CPU, bitwise: the read sets of ``wl``'s round-0
+    execution against the written set of its first VALIDATE_PREFIX
+    transactions in sequence order."""
+    import torch
+    from repro_torch.core.sequencer import RoundRobinSequencer
+    from repro_torch.core.tstore import make_store
+    from repro_torch.core.txn import run_all
+    from repro_torch.kernels import conflict, ops, ref, validate
+
+    batch = wl.batch.to("cuda")
+    res = run_all(batch, make_store(N_OBJECTS, device="cuda").values)
+    seq = RoundRobinSequencer(n_root_lanes=N_LANES).order_for(
+        wl.lanes.tolist())
+    first = torch.from_numpy(np.argsort(seq, kind="stable")[
+        :VALIDATE_PREFIX]).to("cuda")
+    slots = torch.arange(res.waddrs.shape[1], device="cuda")
+    wvalid = slots[None, :] < res.wn[first, None]
+    written = res.waddrs[first][wvalid]            # (Lw,) flattened
+    lw = written.shape[0]
+
+    torch.cuda.synchronize()
+    validate.reset_launches()
+    out = ops.validate(res.raddrs, res.rn, written, lw, N_OBJECTS)
+    torch.cuda.synchronize()
+    launches = validate.LAUNCHES["validate_bitsets"]
+    assert launches > 0, "validate_bitsets was never launched"
+
+    # check 3: the entry point on the CPU, same addresses
+    cpu = ops.validate(res.raddrs.cpu(), res.rn.cpu(), written.cpu(), lw,
+                       N_OBJECTS)
+    assert torch.equal(out.cpu(), cpu), "ops.validate: card != CPU"
+    # check 1: kernel == plain version, main-path and ragged shapes
+    read_bits = validate.pack_addr_sets(res.raddrs, res.rn, N_OBJECTS)
+    written_bits = validate.pack_addr_sets(
+        written[None, :], torch.tensor([lw], device="cuda"), N_OBJECTS)[0]
+    k, w = read_bits.shape
+    for kk, ww in ((k, w), (1000, w), (1000, w - 1)):
+        a, b = read_bits[:kk, :ww], written_bits[:ww]
+        got = validate.validate_bitsets(a, b)
+        assert torch.equal(got, ref.validate_bitsets_ref(a, b)), \
+            f"validate kernel != plain version at ({kk}, {ww})"
+    got = validate.validate_bitsets(read_bits, written_bits)
+    assert torch.equal(got, out)
+    err = int((got.int() - ref.validate_bitsets_ref(
+        read_bits, written_bits).int()).abs().max())
+    # check 2: against the pair kernel's strip over the writers' bitsets
+    write_bits = validate.pack_addr_sets(res.waddrs, res.wn, N_OBJECTS)
+    strip = conflict.conflict_matrix_bits_pair(read_bits, write_bits[first])
+    assert torch.equal(strip.any(dim=1), out), "validate != pair kernel"
+
+    rmask = dense_mask(res.raddrs, res.rn, N_OBJECTS)
+    wmask = dense_mask(written[None, :], torch.tensor([lw], device="cuda"),
+                       N_OBJECTS)[0]
+    assert torch.equal((rmask @ wmask) > 0.5, out), "validate != matmul"
+    t = cuda_time_ms(lambda: validate.validate_bitsets(read_bits,
+                                                       written_bits), 200)
+    t_plain = cuda_time_ms(lambda: ref.validate_bitsets_ref(
+        read_bits, written_bits), 5)
+    t_lib = cuda_time_ms(lambda: rmask @ wmask, 20)
+    b = bound(k * w, k * w * 4 + w * 4 + k)
+    log(f"validate K={k} x W={w} against the writes of the first "
+        f"{VALIDATE_PREFIX} txns (Lw={lw}): {int(out.sum())} of {k} rows "
+        f"conflict; kernel {t:.4f} ms, plain {t_plain:.4f} ms, matmul "
+        f"{t_lib:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); launches in the "
+        f"ops.validate drive {launches}; bitwise equal to the plain version "
+        f"(also at (1000, {w}) and (1000, {w - 1})), the pair kernel's "
+        f"strip and the CPU")
+    del rmask, wmask
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=t, plain_ms=t_plain, bound_ms=b[0],
+                bound_by=b[1], library_ms=t_lib), launches
+
+
+def timed(fn):
+    """fn() with the card synchronised on both sides: (result, seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def engine_runs(wl, device, k=K):
+    """Every engine on the first ``k`` rows of ``wl`` from a fresh store
+    on ``device``: name -> (store, trace, seconds, conflict launches)."""
+    from repro_torch.core.destm import destm_execute
+    from repro_torch.core.occ import occ_execute
+    from repro_torch.core.sequencer import RoundRobinSequencer
+    from repro_torch.core.session import PotSession
+    from repro_torch.core.tstore import make_store
+    from repro_torch.core.txn import next_pow2, pad_batch
+    import torch
+    from repro_torch.kernels import conflict
+
+    batch, lanes = wl.batch.rows(torch.arange(k)), wl.lanes[:k]
+    seq = RoundRobinSequencer(n_root_lanes=N_LANES).order_for(lanes.tolist())
+    as_dev = lambda a: torch_tensor(np.asarray(a, np.int32), device)
+    arrival = np.random.default_rng(SEED).permutation(k)
+
+    def session(engine):
+        s = PotSession(N_OBJECTS, engine=engine, n_lanes=N_LANES,
+                       device=device)
+        trace = s.submit(batch, lanes)
+        return s.store, trace
+
+    # the shims take the batch at the session's bucket (L to a power of
+    # two), so that the walked slots compare with the session's runs
+    padded = pad_batch(batch, k, next_pow2(batch.max_ins))
+
+    def shim(fn, *args, **kw):
+        return lambda: fn(make_store(N_OBJECTS, device=device),
+                          padded.to(device), *args, **kw)
+
+    drives = {
+        "pcc": lambda: session("pcc"),
+        "pogl": lambda: session("pogl"),
+        "destm": lambda: session("destm"),
+        "destm serial walk": shim(destm_execute, as_dev(seq),
+                                  as_dev(lanes), N_LANES, wave=False),
+        "occ": lambda: session("occ"),
+        "occ random arrival": shim(occ_execute, as_dev(arrival)),
+    }
+    out = {}
+    for name, drive in drives.items():
+        conflict.reset_launches()
+        (store, trace), s = timed(drive)
+        out[name] = (store, trace, s, dict(conflict.LAUNCHES))
+    return out, seq, arrival
+
+
+def torch_tensor(a, device):
+    import torch
+    return torch.from_numpy(a).to(device)
+
+
+def phase_engines(wl):
+    """Every engine at the main path's size on the card: PoGL and DeSTM
+    (both walks) held to the numpy serial oracle and to PCC, OCC to its
+    CPU run per arrival with a nondeterminism witness and a replay
+    through PCC, every engine to its CPU run in every trace field."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import oracle
+    from repro_torch.core.engine import TRACE_FIELDS
+    from repro_torch.core.pcc import pcc_execute
+    from repro_torch.core.sequencer import ReplaySequencer
+    from repro_torch.core.tstore import fingerprint, make_store
+
+    card, seq, arrival = engine_runs(wl, "cuda")
+    fps = {name: fingerprint(r[0]) for name, r in card.items()}
+    values, versions, gv = oracle.serial_execute(
+        np.zeros((N_OBJECTS, 1), np.int32), np.zeros(N_OBJECTS, np.int32),
+        0, [convert.batch_to_numpy(wl.batch)], [seq])
+    for name in ("pcc", "pogl", "destm", "destm serial walk"):
+        store = convert.store_to_numpy(card[name][0])
+        assert np.array_equal(store["values"], values), f"{name} values"
+        assert np.array_equal(store["versions"], versions), \
+            f"{name} versions"
+        assert int(store["gv"]) == gv == K, f"{name} gv"
+        assert fps[name] == fps["pcc"], name
+    tw, ts = card["destm"][1], card["destm serial walk"][1]
+    for f in TRACE_FIELDS:
+        if f not in ("retry_waves", "waves_per_round"):
+            assert torch.equal(getattr(tw, f), getattr(ts, f)), \
+                f"destm wave != serial walk: {f}"
+    assert int(tw.retry_waves) <= int(ts.retry_waves)
+
+    # OCC: the arrival decides the outcome; the commit order replays
+    occ, occ_rand = card["occ"], card["occ random arrival"]
+    if fps["occ"] == fps["occ random arrival"]:
+        log("  occ: both arrivals give one fingerprint on this batch")
+        occ_witness()
+    order = np.argsort(occ_rand[1].commit_pos.cpu().numpy(), kind="stable")
+    rseq = ReplaySequencer(order.tolist()).order_for(wl.lanes.tolist())
+    replay, _ = pcc_execute(make_store(N_OBJECTS, device="cuda"),
+                            wl.batch.to("cuda"),
+                            torch_tensor(np.asarray(rseq, np.int32), "cuda"))
+    assert torch.equal(replay.values, occ_rand[0].values), \
+        "OCC's commit order replayed through PCC differs"
+    launches = {name: r[3] for name, r in card.items()}
+    assert launches["occ"]["conflict_matrix_bits_delta"] > 0
+    assert launches["occ"]["conflict_matrix_bits_pair"] > 0
+    assert launches["destm"]["conflict_matrix_bits_pair"] > 0
+
+    # the card against the CPU, every engine and arrival
+    k_cpu = ENGINES_CPU_K
+    cpu_card = card if k_cpu == K else engine_runs(wl, "cuda", k_cpu)[0]
+    t0 = time.perf_counter()
+    cpu, _, _ = engine_runs(wl, "cpu", k_cpu)
+    t_cpu = time.perf_counter() - t0
+    for name, (store, trace, _, _) in cpu.items():
+        g = cpu_card[name]
+        assert fingerprint(g[0]) == fingerprint(store), f"{name} card != CPU"
+        gt, ct = convert.trace_to_numpy(g[1]), convert.trace_to_numpy(trace)
+        for f in TRACE_FIELDS:
+            assert np.array_equal(gt[f], ct[f]), f"{name} trace.{f}"
+
+    for name, (store, trace, s, _) in card.items():
+        log(f"  {name:20s} {s * 1e3:10.1f} ms/batch {K / s:8.1f} txns/s  "
+            f"rounds {int(trace.rounds):5d}  wave_trips "
+            f"{int(trace.wave_trips):5d}  retry_waves "
+            f"{int(trace.retry_waves):5d}  barrier_ops "
+            f"{int(trace.barrier_ops):6d}  launches {launches[name]}  "
+            f"fp {fps[name]:#010x}")
+    log(f"engines: K={K}, O={N_OBJECTS}, {N_LANES} lanes, one batch each: "
+        f"PoGL, DeSTM (wave) and DeSTM (serial walk) == numpy serial oracle "
+        f"== PCC; DeSTM wave == serial walk but for the wave fields "
+        f"({int(tw.retry_waves)} <= {int(ts.retry_waves)} waves); OCC "
+        f"fingerprints {fps['occ']:#010x} (sequence order) and "
+        f"{fps['occ random arrival']:#010x} (random arrival), replayed "
+        f"through PCC; every engine == its CPU run at K={k_cpu} "
+        f"({t_cpu:.1f} s of CPU) in every trace field")
+    return launches
+
+
+def occ_witness():
+    """OCC's nondeterminism on a small contended counters batch: eight
+    arrivals on the card, more than one outcome."""
+    import torch
+    from repro_torch.core import workloads as W
+    from repro_torch.core.occ import occ_execute
+    from repro_torch.core.tstore import fingerprint, make_store
+    wl = W.counters(n_txns=16, n_objects=8, n_reads=2, n_writes=2,
+                    n_lanes=4, skew=0.0, seed=12, device="cuda")
+    rng = np.random.default_rng(3)
+    fps = {fingerprint(occ_execute(
+        make_store(8, device="cuda"), wl.batch,
+        torch_tensor(rng.permutation(16).astype(np.int32), "cuda"))[0])
+        for _ in range(8)}
+    assert len(fps) > 1, "OCC gave one outcome for eight arrivals"
+    log(f"  occ witness (counters, K=16, 8 objects): {len(fps)} outcomes "
+        f"from 8 arrivals")
 
 
 def max_abs_diff(a, b, rows: int = 1 << 14) -> float:
@@ -1095,7 +1362,9 @@ def main() -> int:
     kernels["kv_commit"] = phase_kv_commit()
     adamw, spec_launches = phase_adamw()
     kernels.update(adamw)
+    kernels["validate_bitsets"], validate_launches = phase_validate(stream[0])
     gpu_session, gpu_traces, launches = phase_main_path(stream)
+    launches["validate_bitsets"] = validate_launches
     phase_held_to_account(stream, gpu_session, gpu_traces)
     phase_round_breakdown(extra)
     del gpu_session, gpu_traces
@@ -1106,6 +1375,7 @@ def main() -> int:
     launches["fused_adamw"] = phase_train()
     launches["fused_adamw_speculative"] = spec_launches
     phase_train_held()
+    phase_engines(stream[0])
 
     summary = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

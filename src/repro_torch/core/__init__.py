@@ -1,8 +1,12 @@
 """Pot core on PyTorch: preordered transactions for deterministic
-execution (the port of ``repro.core``, main path).
+execution (the port of ``repro.core``, serial path, dense store).
 
-A sequencer fixes the serialization order before execution, then the PCC
-engine executes each batch deterministically against the store::
+A sequencer fixes the serialization order before execution, then an
+engine executes each batch against the store: ``"pcc"`` (Pot, alias
+``"pot"``), ``"pogl"`` (the serial oracle), ``"destm"`` (one transaction
+per lane per round, wave retries) or ``"occ"`` (traditional OCC, whose
+outcome depends on the arrival order; the other three depend only on the
+sequence order)::
 
     session = PotSession(n_objects=1024, engine="pcc", n_lanes=8,
                          device="cuda")
@@ -17,7 +21,10 @@ Building blocks: ``TStore`` / ``make_store`` / ``fingerprint``,
 from repro_torch.core.engine import (ENGINES, MODE_FAST, MODE_PREFIX,
                                      MODE_SPEC, MODE_UNSET, EngineDef,
                                      ExecTrace, get_engine, make_trace)
+from repro_torch.core.destm import destm_execute
+from repro_torch.core.occ import occ_execute
 from repro_torch.core.pcc import pcc_execute
+from repro_torch.core.pogl import pogl_execute
 from repro_torch.core.sequencer import (ExplicitSequencer, ReplaySequencer,
                                         RoundRobinSequencer, seq_to_order)
 from repro_torch.core.session import PotSession
@@ -37,5 +44,5 @@ __all__ = [
     "NOP", "READ", "WRITE", "RMW",
     "RoundRobinSequencer", "ReplaySequencer", "ExplicitSequencer",
     "seq_to_order",
-    "pcc_execute",
+    "pcc_execute", "pogl_execute", "destm_execute", "occ_execute",
 ]

@@ -5,9 +5,15 @@ Every engine has the signature
 
     raw(store, batch, seq, lanes, n_lanes) -> (TStore, ExecTrace)
 
-where ``seq`` holds the sequencer's distinct 1-based sequence numbers.
-``get_engine("pcc")`` (``"pot"`` is an alias) is the one engine ported
-so far.
+where ``seq`` holds the sequencer's distinct 1-based sequence numbers and
+``lanes`` / ``n_lanes`` the lane structure, which only DeSTM reads.  OCC
+takes the sequence order as its *arrival* interleaving
+(``arrival = argsort(seq)``), the knob its outcome depends on.
+
+    get_engine("pcc" | "pogl" | "destm" | "occ")   ("pot" aliases "pcc")
+
+Engines register when their module is imported; :func:`get_engine`
+imports a known engine's module on first lookup.
 """
 
 from __future__ import annotations
@@ -91,6 +97,14 @@ def make_trace(k: int, *, device="cuda", **overrides) -> ExecTrace:
     return ExecTrace(**fields)
 
 
+def not_ported(what: str, item: int) -> NotImplementedError:
+    """The error of a reference feature the port does not have yet,
+    naming its item in ROADMAP.md's queue 1."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1 "
+        f"item {item})")
+
+
 def rank_from_order(order: torch.Tensor) -> torch.Tensor:
     """Inverse permutation: rank[order[p]] = p (int64)."""
     rank = torch.empty_like(order)
@@ -128,9 +142,12 @@ ENGINES: dict[str, EngineDef] = {}
 
 _ALIASES = {"pot": "pcc"}
 # module that registers each engine (imported on first lookup)
-_ENGINE_MODULES = {"pcc": "repro_torch.core.pcc"}
-# the reference's other engines, not ported yet
-_NOT_PORTED = ("pogl", "destm", "occ")
+_ENGINE_MODULES = {
+    "pcc": "repro_torch.core.pcc",
+    "pogl": "repro_torch.core.pogl",
+    "destm": "repro_torch.core.destm",
+    "occ": "repro_torch.core.occ",
+}
 
 
 def register_engine(engine: EngineDef) -> EngineDef:
@@ -141,8 +158,6 @@ def register_engine(engine: EngineDef) -> EngineDef:
 def get_engine(name: str) -> EngineDef:
     """Look up an engine by name ("pot" is an alias for "pcc")."""
     key = _ALIASES.get(name, name)
-    if key in _NOT_PORTED:
-        raise NotImplementedError(f"engine {name!r} is not ported yet")
     if key not in ENGINES and key in _ENGINE_MODULES:
         importlib.import_module(_ENGINE_MODULES[key])
     if key not in ENGINES:

@@ -29,20 +29,24 @@ import torch
 from repro_torch.core import protocol
 from repro_torch.core.engine import (MODE_FAST, MODE_PREFIX, MODE_SPEC,
                                      MODE_UNSET, EngineDef, ExecTrace,
-                                     make_trace, rank_from_order,
-                                     register_engine)
+                                     make_trace, not_ported,
+                                     rank_from_order, register_engine)
 from repro_torch.core.tstore import TStore, store_with
 from repro_torch.core.txn import TxnBatch, run_txn
 
 _I32 = torch.int32
 _INT32_MAX = torch.iinfo(torch.int32).max
 
+# the old per-engine trace name, kept as an alias of the one schema
+PccTrace = ExecTrace
+
 
 def _pcc_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
                  max_rounds: int | None = None,
                  live_promotion: bool = True,
                  incremental: bool = True,
-                 compact: bool = True) -> tuple[TStore, ExecTrace]:
+                 compact: bool = True,
+                 seed=None) -> tuple[TStore, ExecTrace]:
     """Execute a batch of preordered transactions under PCC.
 
     Args:
@@ -61,10 +65,14 @@ def _pcc_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
       compact: run the rounds as a cascade over
              ``protocol.compact_ladder(K)`` widths; only meaningful with
              ``incremental``.
+      seed:  a cross-batch speculative round 0; not ported yet (raises
+             ``NotImplementedError``).
     Returns:
       (new store, trace); ``new_store.gv`` is ``store.gv`` plus the
       number of committed transactions.
     """
+    if seed is not None:
+        raise not_ported("seeded execution (seed=)", 7)
     k = batch.n_txns
     dev = store.device
     n_obj = store.n_objects

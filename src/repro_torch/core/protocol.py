@@ -18,9 +18,16 @@ table's refreshed row and column strips computed by the pair kernel
 
 **Commit pipeline.**  Conflict analysis (:func:`earlier_writer_conflicts`
 over the carried table, or the scatter-min formulation), the maximal
-in-order prefix (:func:`prefix_commit`, a cumulative AND) and one fused
-write-back (:func:`fused_write_back`, winner per address by
-(rank, slot) segment-max).
+in-order prefix (:func:`prefix_commit`, a cumulative AND) or OCC's
+greedy arrival-order wave (:func:`wave_commit`, a blocked fixpoint), and
+one fused write-back (:func:`fused_write_back`, winner per address by
+(rank, slot) segment-max).  DeSTM's retry waves ask their conflict
+questions across two result blocks (:func:`cross_writer_conflicts`,
+the pair kernel's rectangular strips).
+
+**Written-set helpers.**  :func:`footprint_conflicts` and
+:func:`mark_writes` test and grow an (O,) bool set of written objects:
+the validation step of the serial token walk, for many rows at once.
 
 Formulation.  On CUDA tensors the engines take the matrix formulation
 (``kernel_ops._on_cuda``), so that the hand-written delta kernel carries
@@ -79,6 +86,33 @@ def apply_writes(values, versions, waddrs, wvals, wn, seq_no):
     return values, versions
 
 
+def footprint_conflicts(written: torch.Tensor, raddrs, rn, waddrs, wn
+                        ) -> torch.Tensor:
+    """Does each row's footprint overlap ``written`` (O,) bool?  The
+    validation step (paper Fig. 2b line 9) for rows of (..., L)
+    addresses with (...,) valid counts; returns (...,) bool."""
+    slot = torch.arange(raddrs.shape[-1], device=raddrs.device)
+
+    def hit(addrs, n):
+        valid = slot < n[..., None]
+        return (written[torch.where(valid, addrs, 0).long()] & valid).any(-1)
+
+    return hit(raddrs, rn) | hit(waddrs, wn)
+
+
+def mark_writes(written: torch.Tensor, waddrs, wn) -> torch.Tensor:
+    """written |= the write sets of rows of (..., L) addresses with
+    (...,) valid counts, in place.  A masked max-scatter: every value
+    written is True and invalid slots add nothing, so duplicate
+    addresses leave no choice of winner and no sentinel is written."""
+    slot = torch.arange(waddrs.shape[-1], device=waddrs.device)
+    valid = slot < wn[..., None]
+    written.view(torch.uint8).scatter_reduce_(
+        0, torch.where(valid, waddrs, 0).reshape(-1).long(),
+        valid.reshape(-1).to(torch.uint8), "amax")
+    return written
+
+
 # --------------------------------------------------------------------------
 # Conflict formulation
 # --------------------------------------------------------------------------
@@ -125,11 +159,14 @@ class RoundState:
 
 
 def init_round_state(batch: TxnBatch, values: torch.Tensor,
-                     versions: torch.Tensor) -> RoundState:
+                     versions: torch.Tensor, *,
+                     track_conflict: bool = True) -> RoundState:
     """A fresh RoundState with empty caches.  The table and the packed
     bitsets are allocated only in the matrix formulation (CUDA, as
-    :func:`conflict_table` decides).  Every row must be refreshed no
-    later than the first round that consumes it."""
+    :func:`conflict_table` decides), and never with
+    ``track_conflict=False`` (DeSTM, which asks its conflict questions on
+    a compact per-round block).  Every row must be refreshed no later
+    than the first round that consumes it."""
     k, length = batch.opcodes.shape
     slot = values.shape[-1]
     dev = values.device
@@ -138,7 +175,7 @@ def init_round_state(batch: TxnBatch, values: torch.Tensor,
                     waddrs=z((k, length)), wvals=z((k, length, slot)),
                     wn=z((k,)))
     conflict = foot_bits = write_bits = None
-    if _matrix_backend(values):
+    if track_conflict and _matrix_backend(values):
         w = -(-values.shape[0] // 32)
         conflict = z((k, k), torch.bool)
         foot_bits = z((k, w))
@@ -301,6 +338,23 @@ def earlier_writer_conflicts(res: TxnResult, conflict: torch.Tensor | None,
     return hit(res.raddrs, res.rn) | hit(res.waddrs, res.wn)
 
 
+def cross_writer_conflicts(reader_res: TxnResult, writer_res: TxnResult,
+                           writer_mask: torch.Tensor, rank: torch.Tensor,
+                           n_objects: int,
+                           reads_only: bool = False) -> torch.Tensor:
+    """bad (C,) bool: does reader row t's footprint (or, with
+    ``reads_only``, its logged read set alone) hit the write set of a
+    writer row q with ``writer_mask[q]`` and ``rank[q] < rank[t]``?  The
+    two-block form of :func:`earlier_writer_conflicts` behind DeSTM's
+    retry waves; the verdicts come from the pair kernel's strip
+    (``kernel_ops.cross_conflicts``)."""
+    mat = kernel_ops.cross_conflicts(
+        reader_res.raddrs, reader_res.rn, reader_res.waddrs, reader_res.wn,
+        writer_res.waddrs, writer_res.wn, n_objects, reads_only=reads_only)
+    earlier = writer_mask[None, :] & (rank[None, :] < rank[:, None])
+    return (mat & earlier).any(dim=1)
+
+
 def prefix_commit(res: TxnResult, conflict: torch.Tensor | None,
                   order: torch.Tensor, rank: torch.Tensor, n_comm: int,
                   n_objects: int,
@@ -320,6 +374,28 @@ def prefix_commit(res: TxnResult, conflict: torch.Tensor | None,
     ok_pos = torch.where(pos >= n_comm, ~bad[order], True)
     alive_pos = torch.cummin(ok_pos.to(_I32), dim=0).values.bool()
     return pending & alive_pos[rank]
+
+
+def wave_commit(res: TxnResult, conflict: torch.Tensor | None,
+                pending: torch.Tensor, rank: torch.Tensor, n_objects: int,
+                block: int = 1) -> tuple[torch.Tensor, int]:
+    """OCC's arrival-order wave rule: c[t] = pending[t] and no earlier q
+    with c[q] conflicts with t (the greedy kernel of the conflict DAG; no
+    prefix rule).  Solved by fixpoint iteration from c = pending, ``block``
+    conflict queries per trip, the convergence test (one host sync) only
+    after the block, as the reference's unrolled ``while_loop`` trip does.
+    Returns ``(committing, trips)``: the trip count, final converging
+    trip included, is what ``ExecTrace.wave_trips`` sums."""
+    c, trips = pending, 0
+    while True:
+        start = c
+        for _ in range(block):
+            blocked = earlier_writer_conflicts(res, conflict, c, rank,
+                                               n_objects)
+            c = pending & ~blocked
+        trips += 1
+        if bool((c == start).all()):
+            return c, trips
 
 
 def fused_write_back(values, versions, waddrs, wvals, wn, committing, rank,

@@ -2,7 +2,8 @@
 ``repro.core.session``), serial path.
 
 A session owns the store (carried across batches, with ``gv``), the
-sequencer (globally increasing sequence numbers) and its engine, all on
+sequencer (globally increasing sequence numbers) and its engine
+(``"pcc"`` / ``"pot"``, ``"pogl"``, ``"destm"`` or ``"occ"``), all on
 one device.  ``submit`` pads every batch up to its (K, L) shape bucket
 with vacant NOP rows (sequence numbers past every real row's), which the
 engines never commit, so fingerprints and ``replay_log()`` equal the
@@ -32,7 +33,8 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.engine import EngineDef, ExecTrace, get_engine
+from repro_torch.core.engine import (EngineDef, ExecTrace, get_engine,
+                                     not_ported)
 from repro_torch.core.sequencer import ReplaySequencer, RoundRobinSequencer
 from repro_torch.core.tstore import TStore, make_store
 from repro_torch.core.tstore import fingerprint as store_fingerprint
@@ -52,11 +54,6 @@ def dense_bucket(k: int) -> int:
     return -(-k // 8) * 8
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (see ROADMAP.md queue 1)")
-
-
 class PotSession:
     """Deterministic transactional execution over a stream of batches.
 
@@ -64,11 +61,12 @@ class PotSession:
       n_objects: size of a fresh store (ignored if ``store`` is given).
       slot / init: forwarded to :func:`make_store` for the fresh store.
       store: an existing TStore to adopt (moved to ``device``).
-      engine: engine name (``"pcc"``, or its alias ``"pot"``) or an
+      engine: engine name (``"pcc"`` / ``"pogl"`` / ``"destm"`` /
+        ``"occ"``; ``"pot"`` aliases ``"pcc"``) or an
         :class:`~repro_torch.core.engine.EngineDef`.
       sequencer: any object with ``order_for(keys) -> (K,) seq numbers``;
         defaults to a ``RoundRobinSequencer`` over ``n_lanes`` lanes.
-      n_lanes: lane count (round-robin width).
+      n_lanes: lane count (round-robin width, DeSTM round width).
       bucket: pad batch shapes up to buckets with vacant NOP rows
         (bit-identical outcome); False submits exact shapes.
       bucket_ladder: ``"pow2"`` (next power of two) or ``"dense"``
@@ -87,13 +85,13 @@ class PotSession:
                  bucket_ladder: str = "pow2", shards: int = 1, mesh=None,
                  pipeline_depth: int = 0, elastic=None, device="cuda"):
         if shards != 1 or mesh is not None:
-            raise _not_ported("the sharded store (shards > 1, mesh)")
+            raise not_ported("the sharded store (shards > 1, mesh)", 9)
         if pipeline_depth < 0:
             raise ValueError("pipeline_depth must be >= 0")
         if pipeline_depth > 0:
-            raise _not_ported("cross-batch pipelining (pipeline_depth > 0)")
+            raise not_ported("cross-batch pipelining (pipeline_depth > 0)", 7)
         if elastic is not None:
-            raise _not_ported("elastic lane management")
+            raise not_ported("elastic lane management", 10)
         if bucket_ladder not in ("pow2", "dense"):
             raise ValueError(
                 f"bucket_ladder must be 'pow2' or 'dense', "
@@ -209,14 +207,14 @@ class PotSession:
         return [self.submit(b, l) for b, l in zip(batches, lanes_list)]
 
     def serve(self, pool, budget: int = 64, **kwargs):
-        raise _not_ported("ingress serving (PotSession.serve)")
+        raise not_ported("ingress serving (PotSession.serve)", 8)
 
     def snapshot(self, directory: str, **kwargs):
-        raise _not_ported("session snapshots")
+        raise not_ported("session snapshots", 10)
 
     @classmethod
     def restore(cls, directory: str, **overrides):
-        raise _not_ported("session restore")
+        raise not_ported("session restore", 10)
 
     def _lane_ids(self, keys) -> np.ndarray:
         """Engine-facing lane array: numeric keys mod n_lanes; symbolic
@@ -269,7 +267,7 @@ class PotSession:
 
     def wave_counts(self) -> list[np.ndarray]:
         """Per-round retry-wave counts, one array per submitted batch
-        (empty for PCC, which records none)."""
+        (DeSTM's; empty for the engines that record none)."""
         return [t.wave_counts() for t in self.traces]
 
     def replay_sequencer(self) -> ReplaySequencer:

@@ -22,7 +22,8 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 SOURCES = {"conflict": _HERE / "csrc" / "conflict.cu",
            "kv_commit": _HERE / "csrc" / "kv_commit.cu",
-           "fused_adamw": _HERE / "csrc" / "fused_adamw.cu"}
+           "fused_adamw": _HERE / "csrc" / "fused_adamw.cu",
+           "validate": _HERE / "csrc" / "validate.cu"}
 BUILD_DIR = _HERE / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -45,6 +46,9 @@ SIGNATURES = {
         "pot_adamw_f32g": [_P] * 8 + [_L, _P],
         "pot_adamw_bf16g": [_P] * 8 + [_L, _P],
         "pot_adamw_spec": [_P] * 10 + [_L, _L, _P],
+    },
+    "validate": {
+        "pot_validate": [_P, _P, _P, _I, _I, _P],
     },
 }
 

@@ -1,8 +1,9 @@
-"""Plumbing around the kernels, after ``repro.kernels.ops``: the
-conflict-table updates of the round protocol (dense store), the
-ordered paged commit of the serving path (``kv_cache_commit``) and the
-fused AdamW commit of the training path (``adamw_update`` and its
-speculative variant).
+"""Plumbing around the kernels, after ``repro.kernels.ops``: TL2 read-set
+validation (``validate``), the conflict-table updates of the round
+protocol (dense store), the rectangular conflict strips of DeSTM's
+retry waves (``cross_conflicts``), the ordered paged commit of the
+serving path (``kv_cache_commit``) and the fused AdamW commit of the
+training path (``adamw_update`` and its speculative variant).
 
 The reference takes its Pallas kernels only on a TPU (``_on_tpu()``) and
 otherwise dense fallbacks.  Here ``_on_cuda`` takes that place: the
@@ -28,6 +29,21 @@ def _on_cuda(t: torch.Tensor) -> bool:
     """True when ``t`` lives on a CUDA device: the matrix formulation,
     carried by the hand-written kernels."""
     return t.device.type == "cuda"
+
+
+def validate(read_addrs: torch.Tensor, read_n: torch.Tensor,
+             written_addrs: torch.Tensor, written_n,
+             n_objects: int) -> torch.Tensor:
+    """Read-set validation of K transactions against one written set:
+    read_addrs (K, L) with read_n (K,) valid slots, written_addrs (Lw,)
+    with written_n (a number or a () tensor) valid slots.  Returns
+    conflict (K,) bool, through the validation kernel on CUDA tensors and
+    its plain version on CPU ones."""
+    read_bits = _val.pack_addr_sets(read_addrs, read_n, n_objects)
+    wn = torch.as_tensor(written_n, device=written_addrs.device).reshape(1)
+    written_bits = _val.pack_addr_sets(written_addrs[None, :], wn,
+                                       n_objects)[0]
+    return _val.validate_bitsets(read_bits, written_bits)
 
 
 def _conflict_matrix_dense(raddrs, rn, waddrs, wn, n_objects):
@@ -123,6 +139,26 @@ def conflict_matrix_delta(foot_bits: torch.Tensor, write_bits: torch.Tensor,
     (i, j) is recomputed iff transaction i or j re-executed this round
     (``live``), otherwise ``old`` is carried — the delta kernel."""
     return _conf.conflict_matrix_bits_delta(foot_bits, write_bits, old, live)
+
+
+def cross_conflicts(reader_raddrs: torch.Tensor, reader_rn: torch.Tensor,
+                    reader_waddrs: torch.Tensor, reader_wn: torch.Tensor,
+                    writer_waddrs: torch.Tensor, writer_wn: torch.Tensor,
+                    n_objects: int, reads_only: bool = False
+                    ) -> torch.Tensor:
+    """Rectangular reader x writer conflict strip, (R, C) bool: entry
+    (i, j) means reader row i's footprint (reads and writes, or its
+    logged reads alone with ``reads_only``) intersects writer row j's
+    write set.  Both sides are bit-packed and the strip is one pair-kernel
+    call: the kernel on CUDA tensors, and on CPU ones its plain version,
+    the dense bit-ops form the reference takes off the TPU (same
+    verdicts)."""
+    rbits = _val.pack_addr_sets(reader_raddrs, reader_rn, n_objects)
+    if not reads_only:
+        rbits = rbits | _val.pack_addr_sets(reader_waddrs, reader_wn,
+                                            n_objects)
+    wbits = _val.pack_addr_sets(writer_waddrs, writer_wn, n_objects)
+    return _conf.conflict_matrix_bits_pair(rbits, wbits)
 
 
 def kv_cache_commit(cache, versions, rows, page_idx, row_idx, sn, commit):

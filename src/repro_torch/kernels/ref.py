@@ -1,13 +1,14 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-They compute exactly what ``csrc/conflict.cu``, ``csrc/kv_commit.cu``
-and ``csrc/fused_adamw.cu`` compute and are what the kernel wrappers in
-:mod:`repro_torch.kernels.conflict`, :mod:`repro_torch.kernels.kv_commit`
+They compute exactly what ``csrc/conflict.cu``, ``csrc/validate.cu``,
+``csrc/kv_commit.cu`` and ``csrc/fused_adamw.cu`` compute and are what
+the kernel wrappers in :mod:`repro_torch.kernels.conflict`,
+:mod:`repro_torch.kernels.validate`, :mod:`repro_torch.kernels.kv_commit`
 and :mod:`repro_torch.kernels.fused_adamw` run on CPU tensors.  The
 full (M, N, W) broadcast of the reference's ``conflict_matrix_bits_ref``
 is 34 G elements at the main path's shapes (K = 1024, W = 32768), so the
-conflict versions work in blocks of rows and words whose broadcast stays
-under ``_BLOCK_ELEMS`` elements.
+conflict and validation versions work in blocks of rows and words whose
+broadcast stays under ``_BLOCK_ELEMS`` elements.
 """
 
 from __future__ import annotations
@@ -33,6 +34,20 @@ def conflict_matrix_bits_pair_ref(foot_bits: torch.Tensor,
         for w0 in range(0, w, wc):
             f = foot_bits[r0:r0 + rc, None, w0:w0 + wc]
             rows |= ((f & write_bits[None, :, w0:w0 + wc]) != 0).any(dim=2)
+    return out
+
+
+def validate_bitsets_ref(read_bits: torch.Tensor,
+                         written_bits: torch.Tensor) -> torch.Tensor:
+    """(K,) bool: out[k] = any_w(read_bits[k, w] & written_bits[w]) for
+    read_bits (K, W) and written_bits (W,) int32 (TL2 read-set
+    validation)."""
+    k, w = read_bits.shape
+    out = torch.zeros((k,), dtype=torch.bool, device=read_bits.device)
+    rc = max(1, _BLOCK_ELEMS // max(w, 1))
+    for r0 in range(0, k, rc):
+        out[r0:r0 + rc] = ((read_bits[r0:r0 + rc] & written_bits[None, :])
+                           != 0).any(dim=1)
     return out
 
 

@@ -1,9 +1,11 @@
 """The hand-written CUDA kernels against their plain versions, on the
-card: bitwise equality on ragged and main-path shapes (the AdamW
-kernels also on unaligned views and a leaf of more than 2^31 bytes),
-launch counting, a small stream through the card's matrix formulation
-equal to the CPU's scatter-min run, the serving session on the card
-against the CPU's, and a Pot train step on the card run twice, bitwise.
+card: bitwise equality on ragged and main-path shapes (the AdamW and
+validation kernels also on unaligned views, AdamW on a leaf of more than
+2^31 bytes), launch counting, a small stream through the card's matrix
+formulation equal to the CPU's scatter-min run for each of the four
+engines, ``ops.validate`` on the card against the CPU, the serving
+session on the card against the CPU's, and a Pot train step on the card
+run twice, bitwise.
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
 false (decided inside the fixture, not at import).  Run on a GPU machine
 with
@@ -29,7 +31,8 @@ from repro_torch.core.engine import TRACE_FIELDS
 from repro_torch.core.session import PotSession
 from repro_torch.configs import get_smoke_config
 from repro_torch.data.pipeline import DataConfig, batch_at
-from repro_torch.kernels import conflict, fused_adamw, kv_commit, ref
+from repro_torch.kernels import (conflict, fused_adamw, kv_commit, ops, ref,
+                                 validate)
 from repro_torch.models import lm
 from repro_torch.serve.session import Session
 from repro_torch.train import init_state, make_train_step
@@ -94,6 +97,72 @@ def test_stream_on_card_equals_cpu(cuda):
         runs.append((s, traces, dict(conflict.LAUNCHES)))
     (g, g_tr, launches), (c, c_tr, cpu_launches) = runs
     assert min(launches.values()) > 0 and max(cpu_launches.values()) == 0
+    assert g.fingerprint() == c.fingerprint()
+    assert g.replay_log() == c.replay_log()
+    for gt, ct in zip(g_tr, c_tr):
+        gt, ct = convert.trace_to_numpy(gt), convert.trace_to_numpy(ct)
+        for f in TRACE_FIELDS:
+            np.testing.assert_array_equal(gt[f], ct[f], err_msg=f)
+
+
+@pytest.mark.parametrize("k,w", [(1, 1), (8, 128), (1000, 32767),
+                                 (1024, 32768)])
+def test_validate_kernel_equals_plain(cuda, k, w):
+    rng = np.random.default_rng(k + w)
+    read = _bits(rng, k, w, 3e-4, cuda)
+    written = _bits(rng, 1, w, 0.01, cuda)[0]
+    validate.reset_launches()
+    out = validate.validate_bitsets(read, written)
+    torch.cuda.synchronize()
+    assert validate.LAUNCHES["validate_bitsets"] == 1
+    assert torch.equal(out, ref.validate_bitsets_ref(read, written))
+
+
+def test_validate_kernel_on_unaligned_views(cuda):
+    """Bases 4 bytes past a 16-byte boundary take the one-word loop."""
+    rng = np.random.default_rng(1)
+    k, w = 37, 260
+    flat = _bits(rng, 1, k * w + 1, 0.002, cuda)[0]
+    read = flat[1:].view(k, w)
+    written = _bits(rng, 1, w + 1, 0.05, cuda)[0][1:]
+    assert read.data_ptr() % 16 and written.data_ptr() % 16
+    out = validate.validate_bitsets(read, written)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.validate_bitsets_ref(read, written))
+    assert out.any() and not out.all()
+
+
+def test_ops_validate_on_card_equals_cpu(cuda):
+    rng = np.random.default_rng(2)
+    ra = torch.from_numpy(rng.integers(0, 1 << 20, (300, 16)).astype(
+        np.int32))
+    rn = torch.from_numpy(rng.integers(0, 17, 300).astype(np.int32))
+    wa = ra[:40].reshape(-1)[rng.permutation(640)]
+    got = ops.validate(ra.to(cuda), rn.to(cuda), wa.to(cuda), 640, 1 << 20)
+    exp = ops.validate(ra, rn, wa, 640, 1 << 20)
+    assert torch.equal(got.cpu(), exp) and exp.any() and not exp.all()
+
+
+@pytest.mark.parametrize("engine", ["occ", "pogl", "destm"])
+def test_engine_stream_on_card_equals_cpu(cuda, engine):
+    """Each engine's small ragged stream on the card (matrix formulation
+    for OCC) equals its CPU run (scatter-min) in every trace field, and
+    reaches the conflict kernels it should."""
+    wls = [W.counters(n_txns=k, n_objects=512, n_reads=2, n_writes=2,
+                      n_lanes=8, skew=1.0, seed=s, device="cpu")
+           for s, k in enumerate((300, 77))]
+    runs = []
+    for dev in (cuda, "cpu"):
+        s = PotSession(512, engine=engine, n_lanes=8, device=dev)
+        conflict.reset_launches()
+        traces = s.run_stream([w.batch for w in wls], [w.lanes for w in wls])
+        runs.append((s, traces, dict(conflict.LAUNCHES)))
+    (g, g_tr, launches), (c, c_tr, cpu_launches) = runs
+    assert max(cpu_launches.values()) == 0
+    if engine == "occ":
+        assert min(launches.values()) > 0, launches
+    elif engine == "destm":
+        assert launches["conflict_matrix_bits_pair"] > 0, launches
     assert g.fingerprint() == c.fingerprint()
     assert g.replay_log() == c.replay_log()
     for gt, ct in zip(g_tr, c_tr):

@@ -45,7 +45,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "repro_torch.kernels.fused_adamw, repro_torch.optim, "
         "repro_torch.train, repro_torch.data.pipeline, "
         "repro_torch.ckpt.checkpoint, repro_torch.core.checkpoint, "
-        "repro_torch.launch.train, repro_torch.tree\n"
+        "repro_torch.launch.train, repro_torch.tree, "
+        "repro_torch.kernels.validate, repro_torch.core.occ, "
+        "repro_torch.core.pogl, repro_torch.core.destm\n"
         "from repro_torch.configs import get_config\n"
         "get_config('stablelm-12b')\n"
         "from repro_torch.kernels import _build\n"

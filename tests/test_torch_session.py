@@ -199,10 +199,16 @@ def test_pcc_execute_matches_reference(kw, formulation, pcc_reference):
 
 
 @pytest.mark.parametrize("kw", [dict(pipeline_depth=1), dict(shards=2),
-                                dict(elastic=object()), dict(engine="occ")])
+                                dict(elastic=object())])
 def test_unported_session_arguments_raise(kw):
     with pytest.raises(NotImplementedError):
         PotSession(16, device="cpu", **kw)
+
+
+def test_unknown_engine_raises():
+    with pytest.raises(KeyError):
+        PotSession(16, engine="tl2", device="cpu")
+    assert PotSession(16, engine="pot", device="cpu").engine.name == "pcc"
 
 
 def test_unported_session_methods_raise():
