@@ -8,12 +8,18 @@ Phases, each printing its own lines:
 1. the card's name and power limit (``nvidia-smi``), and the build of
    every hand-written kernel from ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a`` (all sources started together);
-2. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, bitwise; its time (CUDA events), the
-   plain version's, one library call computing the same table
-   (``torch.matmul`` of 0/1 bf16 masks, a yardstick the port never
-   calls) and its bound (the larger of bytes over the memory rate and
-   word-pair operations over the int32 rate);
+2. the word-pair rate of a bare loop of LOP3 and of the binary
+   tensor-core MMA on every SM (the conflict kernels' route rests on
+   it); then each conflict kernel against its plain PyTorch version on
+   the card, bitwise: the pair kernel at every strip the engines launch
+   ((C, 1024) and (1024, C) for each compact rung C of K = 1024, and
+   DeSTM's 8 x 8 retry-wave strips), the delta kernel on the full rung
+   with about half and a quarter of the rows live; each with its time
+   (CUDA events), the plain version's, one library call computing the
+   same table (``torch.matmul`` of 0/1 bf16 masks, a yardstick the port
+   never calls) and its bound (the larger of bytes over the memory rate
+   and word pairs over the binary MMA's measured rate; also at the
+   int32 rate);
 2b. the ordered paged-commit kernel against its plain version on the
    card, bitwise, at the serving session's own shape (128 pages of
    16 x 8 float32, 8 slots) and at a paged KV cache the size of the
@@ -26,7 +32,8 @@ Phases, each printing its own lines:
    (``vacation_like(update_pct=90)``, 1,048,576 objects as in
    ``-r1048576``, K = 1024 transactions, 8 lanes) through
    ``PotSession(..., engine="pcc", device="cuda").run_stream``, with the
-   kernels' launch counts from that run alone (each must be > 0);
+   kernels' launch counts from that run alone (each must be > 0), and the
+   conflict kernels' by shape;
 4. the same stream through the port on the CPU (scatter-min
    formulation): fingerprint, replay log and every trace field must be
    bitwise equal to the card's, and the final store must equal a plain
@@ -98,7 +105,8 @@ Phases, each printing its own lines:
    the witness); every run equals the port's CPU run of the same
    engine and arrival in every trace field.  Per engine: ms per batch,
    txns/s, rounds, ``wave_trips``, ``retry_waves``, ``barrier_ops`` and
-   the launches (OCC's delta and pair, DeSTM's pair must be > 0).
+   the launches, also by shape (OCC's delta and pair, DeSTM's pair must
+   be > 0).
 
 The second line from the end is the kernels' JSON summary and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -129,7 +137,6 @@ K = 1024                # transactions per batch
 N_LANES = 8
 N_BATCHES = 4
 SEED = 0
-STRIP = 256             # the compact rung below K = 1024
 VALIDATE_PREFIX = 512   # phase 2d: the writers of the validated set
 ENGINES_CPU_K = 256     # phase 10: the card against the CPU at this K
 
@@ -193,8 +200,9 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+def bound(ops: float, nbytes: float,
+          ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
+    t_ops, t_bytes = ops / ops_per_s, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -223,13 +231,39 @@ def dense_mask(addrs, n, n_objects):
     return mask[:, :n_objects].contiguous()
 
 
+def rate_probe() -> dict[str, float]:
+    """Word pairs per second of a bare loop of each candidate instruction
+    of the conflict kernels on every SM: LOP3 (``acc | (a & b)``, one
+    word pair each) and the binary tensor-core MMA (m16n8k256 AND-POPC,
+    16 x 8 x 8 word pairs each)."""
+    import torch
+    from repro_torch.kernels import _build
+    blocks, iters = 132 * 8, 4096
+    sink = torch.zeros(blocks, dtype=torch.int32, device="cuda")
+    rates = {}
+    for name, per_trip in (("lop3", 256 * 64), ("bmma", 8 * 4 * 1024)):
+        ms = cuda_time_ms(lambda: _build.launch(
+            "conflict", f"pot_rate_{name}", sink.device, sink.data_ptr(),
+            blocks, iters, 0x2545F491), 5)
+        rates[name] = blocks * iters * per_trip / (ms * 1e-3)
+    log(f"instruction rates (word pairs/s): LOP3 {rates['lop3']:.4e} "
+        f"({rates['lop3'] / INT32_OPS_PER_S:.3f} of the int32 peak), binary "
+        f"MMA {rates['bmma']:.4e} ({rates['bmma'] / rates['lop3']:.3f} x "
+        f"LOP3)")
+    return rates
+
+
 def phase_kernels(batch):
     """Each kernel vs its plain version at the main path's shapes."""
     import torch
+    from repro_torch.core.protocol import compact_ladder
     from repro_torch.core.tstore import make_store
     from repro_torch.core.txn import run_all
     from repro_torch.kernels import conflict, ops, ref
 
+    # the conflict kernels run on the binary MMA, whose rate the data
+    # sheet does not give: their bounds take the rate measured here
+    mma_rate = rate_probe()["bmma"]
     store = make_store(N_OBJECTS, device="cuda")
     res = run_all(batch, store.values)
     foot, write = ops.packed_footprints(res.raddrs, res.rn, res.waddrs,
@@ -239,66 +273,101 @@ def phase_kernels(batch):
                           dense_mask(res.waddrs, res.wn, N_OBJECTS))
     wmask = dense_mask(res.waddrs, res.wn, N_OBJECTS)
     library_table = (fmask @ wmask.T) > 0.5
-    rows = torch.arange(K - STRIP, K, device="cuda")  # the pending suffix
     results = {}
 
-    # --- pair: the (C, K) and (K, C) strips of a compact round ----------
-    strips = [(foot[rows], write, fmask[rows], wmask),
-              (foot, write[rows], fmask, wmask[rows])]
-    ms, plain_ms, lib_ms, bnd, err = [], [], [], [], 0
-    for a, b, am, bm in strips:
+    # --- pair: the (C, K) and (K, C) strips of every compact rung, and
+    # DeSTM's (lanes x lanes) retry-wave strips; rows from the pending
+    # suffix.  The summary line keeps the widest rung's two strips.
+    def rows(c):
+        return torch.arange(K - c, K, device="cuda")
+    strips = []
+    for c in compact_ladder(K)[1:]:
+        strips += [(rows(c), None), (None, rows(c))]
+    strips.append((rows(N_LANES), rows(N_LANES)))
+    timed_pair = []
+    err = 0
+    for ri, ci in strips:
+        a, am = (foot, fmask) if ri is None else (foot[ri], fmask[ri])
+        b, bm = (write, wmask) if ci is None else (write[ci], wmask[ci])
         out = conflict.conflict_matrix_bits_pair(a, b)
         plain = ref.conflict_matrix_bits_pair_ref(a, b)
         torch.cuda.synchronize()
         err = max(err, int((out.int() - plain.int()).abs().max()))
         assert torch.equal(out, plain), "pair kernel != plain version"
         assert torch.equal(out, (am @ bm.T) > 0.5), "pair != dense matmul"
-        ms.append(cuda_time_ms(
-            lambda: conflict.conflict_matrix_bits_pair(a, b), 50))
-        plain_ms.append(cuda_time_ms(
-            lambda: ref.conflict_matrix_bits_pair_ref(a, b), 2, 1))
-        lib_ms.append(cuda_time_ms(lambda: am @ bm.T, 10))
+        ms = cuda_time_ms(lambda: conflict.conflict_matrix_bits_pair(a, b),
+                          50)
+        plain_ms = cuda_time_ms(
+            lambda: ref.conflict_matrix_bits_pair_ref(a, b), 2, 1)
+        lib_ms = cuda_time_ms(lambda: am @ bm.T, 10)
         m, n = a.shape[0], b.shape[0]
-        bnd.append(bound(m * n * w, (m + n) * w * 4 + m * n))
-        log(f"pair ({m}, {n}) x W={w}: kernel {ms[-1]:.4f} ms, plain "
-            f"{plain_ms[-1]:.4f} ms, matmul {lib_ms[-1]:.4f} ms, bound "
-            f"{bnd[-1][0]:.4f} ms ({bnd[-1][1]}), "
+        bnd = bound(m * n * w, (m + n) * w * 4 + m * n, mma_rate)
+        int32 = bound(m * n * w, (m + n) * w * 4 + m * n)[0]
+        log(f"pair ({m}, {n}) x W={w}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, matmul {lib_ms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}; {int32:.4f} at the int32 rate), "
+            f"launch plan {plan_line(conflict.launch_plan(m, n, w))}, "
             f"{int(out.sum())} conflicting pairs, bitwise equal")
+        timed_pair.append((ms, plain_ms, lib_ms, bnd))
+    main = timed_pair[:2]
     results["conflict_matrix_bits_pair"] = dict(
-        max_abs_err=err, ms=float(np.mean(ms)), plain_ms=float(np.mean(
-            plain_ms)), bound_ms=float(np.mean([b[0] for b in bnd])),
-        bound_by=bnd[0][1], library_ms=float(np.mean(lib_ms)))
+        max_abs_err=err, ms=float(np.mean([t[0] for t in main])),
+        plain_ms=float(np.mean([t[1] for t in main])),
+        bound_ms=float(np.mean([t[3][0] for t in main])),
+        bound_by=main[0][3][1],
+        library_ms=float(np.mean([t[2] for t in main])))
 
-    # --- delta: the full rung, about half the rows live -----------------
+    # --- delta: the full rung at about half and a quarter of the rows
+    # live; the summary line keeps the first
     rng = np.random.default_rng(SEED)
     old = torch.from_numpy(rng.random((K, K)) < 0.5).cuda()
-    live = torch.from_numpy(rng.random(K) < 0.5).cuda()
-    out = conflict.conflict_matrix_bits_delta(foot, write, old, live)
-    plain = ref.conflict_matrix_bits_delta_ref(foot, write, old, live)
-    torch.cuda.synchronize()
-    err = int((out.int() - plain.int()).abs().max())
-    assert torch.equal(out, plain), "delta kernel != plain version"
-    refresh = live[:, None] | live[None, :]
-    assert torch.equal(out, torch.where(refresh, library_table, old))
-    t = cuda_time_ms(
-        lambda: conflict.conflict_matrix_bits_delta(foot, write, old, live),
-        20)
-    t_plain = cuda_time_ms(
-        lambda: ref.conflict_matrix_bits_delta_ref(foot, write, old, live),
-        2, 1)
-    t_lib = cuda_time_ms(lambda: fmask @ wmask.T, 10)
-    n_refresh = int(refresh.sum())
-    b = bound(n_refresh * w, 2 * K * w * 4 + 2 * K * K + K)
-    log(f"delta K={K} x W={w}, {int(live.sum())} live rows, {n_refresh} "
-        f"refreshed entries: kernel {t:.4f} ms, plain {t_plain:.4f} ms, "
-        f"matmul {t_lib:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
-        f"bitwise equal")
-    results["conflict_matrix_bits_delta"] = dict(
-        max_abs_err=err, ms=t, plain_ms=t_plain, bound_ms=b[0],
-        bound_by=b[1], library_ms=t_lib)
+    err = 0
+    for share in (0.5, 0.25):
+        live = torch.from_numpy(rng.random(K) < share).cuda()
+        out = conflict.conflict_matrix_bits_delta(foot, write, old, live)
+        plain = ref.conflict_matrix_bits_delta_ref(foot, write, old, live)
+        torch.cuda.synchronize()
+        err = max(err, int((out.int() - plain.int()).abs().max()))
+        assert torch.equal(out, plain), "delta kernel != plain version"
+        refresh = live[:, None] | live[None, :]
+        assert torch.equal(out, torch.where(refresh, library_table, old))
+        t = cuda_time_ms(lambda: conflict.conflict_matrix_bits_delta(
+            foot, write, old, live), 20)
+        t_plain = cuda_time_ms(lambda: ref.conflict_matrix_bits_delta_ref(
+            foot, write, old, live), 2, 1)
+        t_lib = cuda_time_ms(lambda: fmask @ wmask.T, 10)
+        n_refresh, n_live = int(refresh.sum()), int(live.sum())
+        nbytes = 2 * K * w * 4 + 2 * K * K + K
+        b = bound(n_refresh * w, nbytes, mma_rate)
+        int32 = bound(n_refresh * w, nbytes)[0]
+        slices = conflict.delta_cuts(K, w)[n_live][0]
+        log(f"delta K={K} x W={w}, {n_live} live rows, {n_refresh} "
+            f"refreshed entries: kernel {t:.4f} ms, plain {t_plain:.4f} ms, "
+            f"matmul {t_lib:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+            f"{int32:.4f} at the int32 rate), {slices} slices, bitwise "
+            f"equal")
+        if "conflict_matrix_bits_delta" not in results:
+            results["conflict_matrix_bits_delta"] = dict(
+                ms=t, plain_ms=t_plain, bound_ms=b[0], bound_by=b[1],
+                library_ms=t_lib)
+    results["conflict_matrix_bits_delta"]["max_abs_err"] = err
     del fmask, wmask, library_table
     torch.cuda.empty_cache()
     return results
+
+
+def plan_line(plan) -> str:
+    return (f"{plan.bm} x {plan.bn} tiles x {plan.slices} slices of "
+            f"{plan.slice_words} words")
+
+
+def shape_counts() -> str:
+    """The conflict kernels' launches since the last reset, by shape."""
+    from repro_torch.kernels import conflict
+    short = {"conflict_matrix_bits_pair": "pair",
+             "conflict_matrix_bits_delta": "delta"}
+    return ", ".join(f"{short[name]} ({m}, {n}) x {w}: {c}" for
+                     (name, m, n, w), c in sorted(conflict.SHAPES.items()))
 
 
 def run_stream(wls, device):
@@ -324,6 +393,7 @@ def phase_main_path(wls):
         f"O={N_OBJECTS}: {seconds:.3f} s, {n_txns / seconds:.1f} txns/s, "
         f"rounds per batch {rounds} ({seconds / sum(rounds) * 1e3:.2f} ms "
         f"per round), launches {launches}")
+    log(f"  by shape: {shape_counts()}")
     for name, n in launches.items():
         assert n > 0, f"{name} was never launched on the main path"
     return session, traces, launches
@@ -542,7 +612,8 @@ def engine_runs(wl, device, k=K):
     for name, drive in drives.items():
         conflict.reset_launches()
         (store, trace), s = timed(drive)
-        out[name] = (store, trace, s, dict(conflict.LAUNCHES))
+        out[name] = (store, trace, s, dict(conflict.LAUNCHES),
+                     shape_counts())
     return out, seq, arrival
 
 
@@ -606,20 +677,21 @@ def phase_engines(wl):
     t0 = time.perf_counter()
     cpu, _, _ = engine_runs(wl, "cpu", k_cpu)
     t_cpu = time.perf_counter() - t0
-    for name, (store, trace, _, _) in cpu.items():
+    for name, (store, trace, _, _, _) in cpu.items():
         g = cpu_card[name]
         assert fingerprint(g[0]) == fingerprint(store), f"{name} card != CPU"
         gt, ct = convert.trace_to_numpy(g[1]), convert.trace_to_numpy(trace)
         for f in TRACE_FIELDS:
             assert np.array_equal(gt[f], ct[f]), f"{name} trace.{f}"
 
-    for name, (store, trace, s, _) in card.items():
+    for name, (store, trace, s, _, shapes) in card.items():
         log(f"  {name:20s} {s * 1e3:10.1f} ms/batch {K / s:8.1f} txns/s  "
             f"rounds {int(trace.rounds):5d}  wave_trips "
             f"{int(trace.wave_trips):5d}  retry_waves "
             f"{int(trace.retry_waves):5d}  barrier_ops "
             f"{int(trace.barrier_ops):6d}  launches {launches[name]}  "
             f"fp {fps[name]:#010x}")
+        log(f"  {'':20s} by shape: {shapes or 'none'}")
     log(f"engines: K={K}, O={N_OBJECTS}, {N_LANES} lanes, one batch each: "
         f"PoGL, DeSTM (wave) and DeSTM (serial walk) == numpy serial oracle "
         f"== PCC; DeSTM wave == serial walk but for the wave fields "

@@ -34,8 +34,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # 2^31); all return cudaError_t as int
 SIGNATURES = {
     "conflict": {
-        "pot_conflict_pair": [_P, _P, _P, _I, _I, _I, _P],
-        "pot_conflict_delta": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "pot_conflict_pair": [_P] * 4 + [_I] * 7 + [_P],
+        "pot_conflict_delta": [_P] * 8 + [_I] * 5 + [_P],
+        "pot_rate_lop3": [_P, _I, _I, _I, _P],
+        "pot_rate_bmma": [_P, _I, _I, _I, _P],
     },
     "kv_commit": {
         "pot_kv_commit_f32": [_P] * 7 + [_I] * 4 + [_P],

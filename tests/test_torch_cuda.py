@@ -57,6 +57,16 @@ def _bits(rng, rows, w, density, device):
 @pytest.mark.parametrize("m,n,w,density", [
     (1, 1, 1, 0.5), (13, 40, 7, 0.1), (70, 65, 33, 0.05),
     (64, 64, 32, 0.01), (130, 200, 1000, 0.001), (256, 1024, 4096, 1e-4),
+    # the engines' strips at the main path's W: every compact rung of
+    # K = 1024 both ways, DeSTM's 8 x 8 retry-wave strips, and the square
+    # table
+    (256, 1024, 32768, 1e-3), (1024, 256, 32768, 1e-3),
+    (64, 1024, 32768, 1e-3), (1024, 64, 32768, 1e-3),
+    (16, 1024, 32768, 1e-3), (1024, 16, 32768, 1e-3),
+    (8, 8, 32768, 5e-3), (1024, 1024, 32768, 1e-3),
+    # W below one slice, and W not a multiple of it (nor of 4)
+    (70, 65, 1, 0.5), (300, 130, 7, 0.1), (8, 8, 33, 0.05),
+    (130, 200, 32767, 1e-3),
 ])
 def test_pair_kernel_equals_plain(cuda, m, n, w, density):
     rng = np.random.default_rng(m + n + w)
@@ -65,25 +75,65 @@ def test_pair_kernel_equals_plain(cuda, m, n, w, density):
     out = conflict.conflict_matrix_bits_pair(a, b)
     torch.cuda.synchronize()
     assert conflict.LAUNCHES["conflict_matrix_bits_pair"] == 1
+    assert conflict.SHAPES[("conflict_matrix_bits_pair", m, n, w)] == 1
     assert torch.equal(out, ref.conflict_matrix_bits_pair_ref(a, b))
+    # a second call reuses the combine's scratch after the first
+    assert torch.equal(conflict.conflict_matrix_bits_pair(a, b), out)
+
+
+def test_conflict_kernels_on_two_streams(cuda):
+    """Launches in flight on two streams at once keep their own scratch
+    and row lists."""
+    rng = np.random.default_rng(7)
+    k, w = 1000, 32768
+    a, b = _bits(rng, k, w, 1e-3, cuda), _bits(rng, k, w, 1e-3, cuda)
+    old = torch.from_numpy(rng.random((k, k)) < 0.5).to(cuda)
+    lives = [torch.from_numpy(rng.random(k) < f).to(cuda) for f in (0.5, 0.1)]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(4):
+        for s, live in zip(streams, lives):
+            with torch.cuda.stream(s):
+                outs.append((conflict.conflict_matrix_bits_pair(a, b),
+                             conflict.conflict_matrix_bits_delta(a, b, old,
+                                                                 live), live))
+    torch.cuda.synchronize()
+    pair = ref.conflict_matrix_bits_pair_ref(a, b)
+    for out_pair, out_delta, live in outs:
+        assert torch.equal(out_pair, pair)
+        assert torch.equal(out_delta, ref.conflict_matrix_bits_delta_ref(
+            a, b, old, live))
 
 
 @pytest.mark.parametrize("k,w,live_frac", [
     (1, 1, 1.0), (64, 32, 0.0), (100, 70, 0.3), (257, 300, 0.02),
     (1024, 2048, 0.5),
+    # the full rung at the main path's W, about half and a quarter live;
+    # a ragged K with no row, every row, or only its last row live
+    (1024, 32768, 0.5), (1024, 32768, 0.25),
+    (1000, 32768, 0.0), (1000, 32768, 1.0), (1000, 32768, "last"),
+    (1000, 32767, 0.3),
 ])
 def test_delta_kernel_equals_plain(cuda, k, w, live_frac):
     rng = np.random.default_rng(k + w)
-    a = _bits(rng, k, w, 0.01, cuda)
-    b = _bits(rng, k, w, 0.005, cuda)
+    a = _bits(rng, k, w, 0.01 if w < 32768 else 1e-3, cuda)
+    b = _bits(rng, k, w, 0.005 if w < 32768 else 1e-3, cuda)
     old = torch.from_numpy(rng.random((k, k)) < 0.5).to(cuda)
-    live = torch.from_numpy(rng.random(k) < live_frac).to(cuda)
+    if live_frac == "last":
+        live = torch.zeros(k, dtype=torch.bool, device=cuda)
+        live[-1] = True
+    else:
+        live = torch.from_numpy(rng.random(k) < live_frac).to(cuda)
     conflict.reset_launches()
     out = conflict.conflict_matrix_bits_delta(a, b, old, live)
     torch.cuda.synchronize()
     assert conflict.LAUNCHES["conflict_matrix_bits_delta"] == 1
+    assert conflict.LAUNCHES["conflict_matrix_bits_pair"] == 0
     assert torch.equal(out, ref.conflict_matrix_bits_delta_ref(a, b, old,
                                                                live))
+    assert torch.equal(conflict.conflict_matrix_bits_delta(a, b, old, live),
+                       out)
 
 
 def test_stream_on_card_equals_cpu(cuda):

@@ -189,6 +189,7 @@ def test_plain_versions_are_not_counted_as_launches():
                                         torch.ones(8, dtype=bool))
     assert conflict.LAUNCHES == {"conflict_matrix_bits_pair": 0,
                                  "conflict_matrix_bits_delta": 0}
+    assert not conflict.SHAPES
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -203,3 +204,77 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
             torch.ones(8, dtype=bool))
     with pytest.raises(ValueError):
         conflict.conflict_matrix_bits_pair(foot.to("meta"), foot.to("meta"))
+
+
+# The launch plan of the conflict kernels: the engines' shapes (every
+# compact rung of K = 1024 both ways, DeSTM's 8 x 8 strips, the square
+# table) and ragged ones, from 1 x 1 x 1 up to 1024 x 1024 x 32,768.
+_PLAN_SHAPES = [
+    (1, 1, 1), (1, 1, 0), (8, 8, 32768), (16, 1024, 32768),
+    (1024, 16, 32768), (64, 1024, 32768), (1024, 64, 32768),
+    (256, 1024, 32768), (1024, 256, 32768), (1024, 1024, 32768),
+    (1000, 1000, 32767), (13, 40, 7), (70, 65, 33), (257, 300, 1),
+    (17, 9, 32), (129, 65, 4097), (3, 1024, 100),
+]
+
+
+@pytest.mark.parametrize("m,n,w", _PLAN_SHAPES)
+def test_launch_plan_covers_every_word_once(m, n, w):
+    plan = conflict.launch_plan(m, n, w)
+    assert plan.slice_words % conflict.CHUNK == 0
+    seen = np.zeros(w, np.int64)
+    for s in range(plan.slices):
+        lo, hi = plan.word_range(s, w)
+        assert lo < hi or w == 0, f"slice {s} is empty"
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("m,n,w", _PLAN_SHAPES)
+def test_launch_plan_covers_every_entry_once(m, n, w):
+    plan = conflict.launch_plan(m, n, w)
+    assert (plan.bm, plan.bn) in conflict.TILES
+    seen = np.zeros((m, n), np.int64)
+    for tm in range(plan.tiles_m):
+        for tn in range(plan.tiles_n):
+            seen[tm * plan.bm:(tm + 1) * plan.bm,
+                 tn * plan.bn:(tn + 1) * plan.bn] += 1
+    assert (seen == 1).all()
+    # no tile lies wholly past the table
+    assert (plan.tiles_m - 1) * plan.bm < m
+    assert (plan.tiles_n - 1) * plan.bn < n
+
+
+@pytest.mark.parametrize("m,n,w", _PLAN_SHAPES)
+def test_launch_plan_keeps_slices_within_the_combine(m, n, w):
+    plan = conflict.launch_plan(m, n, w)
+    tiles = plan.tiles_m * plan.tiles_n
+    if plan.slices == 1:
+        assert plan.scratch_words() == 0
+    else:
+        assert plan.scratch_words(jobs=2) == (
+            2 * tiles * (conflict.SCRATCH_STRIDE + 1))
+
+    # one wave of blocks, and at least half the card's slots where W has
+    # the stages to cut
+    blocks = tiles * plan.slices
+    assert blocks <= conflict.BLOCKS or plan.slices == 1
+    if -(-w // conflict.CHUNK) >= conflict.BLOCKS // tiles:
+        assert 2 * blocks >= conflict.BLOCKS
+
+
+@pytest.mark.parametrize("k,w", [(1, 1), (8, 32768), (100, 7), (257, 300),
+                                 (1000, 32767), (1024, 32768)])
+def test_delta_plan_holds_every_live_count(k, w):
+    """The delta kernel reads its cut of W for its own live count from
+    ``delta_cuts`` on the card: for every count the slices cover each word
+    once and fit the grid."""
+    plan = conflict.delta_plan(k, w)
+    assert plan.tiles_m == -(-k // plan.bm) and plan.tiles_n == -(-k // plan.bn)
+    cuts = conflict.delta_cuts(k, w)
+    assert len(cuts) == k + 1
+    assert plan.slices == max(slices for slices, _ in cuts)
+    for slices, words in cuts:
+        assert 1 <= slices <= plan.slices
+        assert words % conflict.CHUNK == 0
+        assert (slices - 1) * words < w <= slices * words or w == 0
