@@ -30,7 +30,8 @@ Phases, each printing its own lines:
    wrapper's clone, the bound and an empty launch's time (the floor);
 3. the main path: a stream of STAMP vacation-high batches
    (``vacation_like(update_pct=90)``, 1,048,576 objects as in
-   ``-r1048576``, K = 1024 transactions, 8 lanes) through
+   ``-r1048576``, K = 1024 transactions, 8 lanes; the first 2 of the 4
+   batches phase 3b serves) through
    ``PotSession(..., engine="pcc", device="cuda").run_stream``, with the
    kernels' launch counts from that run alone (each must be > 0), and the
    conflict kernels' by shape;
@@ -39,6 +40,20 @@ Phases, each printing its own lines:
    bitwise equal to the card's, and the final store must equal a plain
    numpy serial interpreter's;
 5. the host time of each step of one full-rung round (synchronised);
+3b. (run after 5) pipelined ingress serving: the stream's 4 batches
+   (4,096 transactions, of which phase 3 runs the first 2) admitted one
+   by one to an ``IngressPool`` (capacity 4,096, each under its
+   workload lane, journal on), then served from its arrival journal
+   through ``PotSession(..., engine="pcc", pipeline_depth=D,
+   device="cuda").serve(pool, budget)`` three times: D = 0 and D = 2 at
+   budget 1,024, D = 1 at budget 512.  One fingerprint, replay log and
+   store; the two budget-1,024 runs equal in every trace field but
+   ``spec_*``; the D = 0 store equal to the numpy oracle in the pool's
+   drain order; the pipelined runs speculate every row and launch the
+   delta and validation kernels (counts reset before each run).  Per
+   run: seconds, txns/s, rounds and ``spec_*`` per batch, launches, also
+   by shape; then the speculation's own steps at the second batch's
+   turn (``spec_execute``, the re-base, a fresh round 0), synchronised;
 6. serving at full width and depth: ``Session(get_config("stablelm-12b"),
    ..., n_slots=8, max_seq=256, device="cuda")`` with random bf16
    weights from a seeded generator (all 40 layers, about 24 GB), 32
@@ -92,7 +107,16 @@ Phases, each printing its own lines:
    entry point on the card against the CPU.  Its time, the plain
    version's, one ``torch.matmul`` of 0/1 bf16 masks (a yardstick the
    port never calls) and the bound;
-10. (run last) the four engines at the main path's size, one batch each
+2e. (run after 2) the cross-batch validation strip of a pipelined
+   drain: the read sets of phase 3's second batch against the dirty
+   words of the addresses its first writes (K = 1024, W = 32,768) on
+   both routes, the validation kernel and a (1024, 1) strip of the pair
+   kernel, bitwise against their plain versions, the CPU's dense version
+   gather and the entry point ``ops.spec_read_invalid`` on the card;
+   their times, the plain versions', the dense gather's on the card, the
+   entry point's (packing included) and the bound (K·W·4 B over the
+   memory rate);
+10. (run last but one) the four engines at the main path's size, one batch each
    (phase 3's first: K = 1024, O = 1,048,576, 8 lanes; the cut is to one
    batch per engine, never K or O): PCC, PoGL, DeSTM and OCC through
    ``PotSession.submit``, DeSTM's serial token walk and OCC under a
@@ -106,7 +130,13 @@ Phases, each printing its own lines:
    engine and arrival in every trace field.  Per engine: ms per batch,
    txns/s, rounds, ``wave_trips``, ``retry_waves``, ``barrier_ops`` and
    the launches, also by shape (OCC's delta and pair, DeSTM's pair must
-   be > 0).
+   be > 0);
+10b. (run last) each engine pipelined: ``run_stream`` at
+   ``pipeline_depth=2`` over the first 256 rows of the stream's first
+   three batches on the card, equal to the same engine's serial run on the card
+   in every trace field but ``spec_*`` and to its pipelined run on the CPU
+   in every field; per engine the times of the card's runs in turns
+   (serial, pipelined, serial), ``spec_*`` per batch and the launches.
 
 The second line from the end is the kernels' JSON summary and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -136,6 +166,7 @@ N_OBJECTS = 1 << 20     # STAMP vacation -r1048576
 K = 1024                # transactions per batch
 N_LANES = 8
 N_BATCHES = 4
+MAIN_PATH_BATCHES = 2   # phases 3-4's cut; phase 3b serves all N_BATCHES
 SEED = 0
 VALIDATE_PREFIX = 512   # phase 2d: the writers of the validated set
 ENGINES_CPU_K = 256     # phase 10: the card against the CPU at this K
@@ -356,6 +387,84 @@ def phase_kernels(batch):
     return results
 
 
+def phase_spec_strip(batch0, batch1):
+    """The cross-batch validation strip of a pipelined drain at the main
+    path's shape: the read sets of batch 1 run against the empty store
+    (its speculation) against the dirty words of every address batch 0
+    writes (W = 32,768), on both routes: the validation kernel and a
+    (1024, 1) strip of the pair kernel.  Each bitwise against its plain
+    version, the CPU's dense version gather and the entry point
+    ``ops.spec_read_invalid`` on the card (which takes the validation
+    kernel); their times, the plain versions', the dense gather's on the
+    card, the whole entry point's (packing included) and the bound."""
+    import torch
+    from repro_torch.core.tstore import make_store
+    from repro_torch.core.txn import run_all
+    from repro_torch.kernels import conflict, ops, ref, validate
+
+    store = make_store(N_OBJECTS, device="cuda")
+    res0, res1 = run_all(batch0, store.values), run_all(batch1, store.values)
+    slots = torch.arange(res0.waddrs.shape[1], device="cuda")
+    written = res0.waddrs[slots[None, :] < res0.wn[:, None]].long()
+    versions = store.versions.clone()
+    versions[written] = 1
+    snap = torch.zeros((), dtype=torch.int32, device="cuda")
+    read_bits = validate.pack_addr_sets(res1.raddrs, res1.rn, N_OBJECTS)
+    dwords = ops.spec_dirty_words(versions, snap, N_OBJECTS)
+    k, w = read_bits.shape
+    gather = ops.spec_read_invalid(res1.raddrs.cpu(), res1.rn.cpu(),
+                                   versions.cpu(), snap.cpu(), N_OBJECTS)
+    assert torch.equal(dwords.cpu(), ops.spec_dirty_words(
+        versions.cpu(), snap.cpu(), N_OBJECTS)), "dirty words card != CPU"
+
+    def via_validate():
+        return validate.validate_bitsets(read_bits, dwords)
+
+    def via_pair():
+        return conflict.conflict_matrix_bits_pair(read_bits, dwords[None])
+
+    routes = {
+        "validate": (via_validate,
+                     lambda: ref.validate_bitsets_ref(read_bits, dwords)),
+        "pair": (lambda: via_pair()[:, 0],
+                 lambda: ref.conflict_matrix_bits_pair_ref(
+                     read_bits, dwords[None])[:, 0]),
+    }
+    out = {}
+    for name, (kernel, plain) in routes.items():
+        got = kernel()
+        assert torch.equal(got, plain()), f"{name} route != plain version"
+        assert torch.equal(got.cpu(), gather), f"{name} route != CPU"
+        out[name] = cuda_time_ms(via_validate if name == "validate"
+                                 else via_pair, 200)
+        out[f"{name}_plain"] = cuda_time_ms(plain, 3, 1)
+    validate.reset_launches()
+    entry = ops.spec_read_invalid(res1.raddrs, res1.rn, versions, snap,
+                                  N_OBJECTS)
+    torch.cuda.synchronize()
+    assert validate.LAUNCHES["validate_bitsets"] == 1
+    assert torch.equal(entry.cpu(), gather), "ops.spec_read_invalid != CPU"
+    valid = (torch.arange(res1.raddrs.shape[1], device="cuda")[None, :]
+             < res1.rn[:, None])
+    out["dense_gather"] = cuda_time_ms(lambda: (valid & (versions > snap)[
+        torch.where(valid, res1.raddrs, 0).long()]).any(1), 50)
+    out["entry"] = cuda_time_ms(lambda: ops.spec_read_invalid(
+        res1.raddrs, res1.rn, versions, snap, N_OBJECTS), 20)
+    b = bound(k * w, k * w * 4 + w * 4 + k)
+    plan = conflict.launch_plan(k, 1, w)
+    log(f"spec_read_invalid K={k} x W={w} against the {written.numel()} "
+        f"writes of the batch before ({int(gather.sum())} of {k} rows "
+        f"invalid): validation kernel {out['validate']:.4f} ms (plain "
+        f"{out['validate_plain']:.4f}), pair strip ({k}, 1) "
+        f"{out['pair']:.4f} ms (plain {out['pair_plain']:.4f}; "
+        f"{plan_line(plan)}), bound {b[0]:.4f} ms ({b[1]}); dense version "
+        f"gather on the card {out['dense_gather']:.4f} ms; the entry point "
+        f"(packing the read sets and {N_OBJECTS} versions, then the "
+        f"validation kernel) {out['entry']:.4f} ms; both routes bitwise "
+        f"equal to their plain versions and the CPU")
+    return out
+
+
 def plan_line(plan) -> str:
     return (f"{plan.bm} x {plan.bn} tiles x {plan.slices} slices of "
             f"{plan.slice_words} words")
@@ -389,7 +498,7 @@ def phase_main_path(wls):
     launches = dict(conflict.LAUNCHES)
     rounds = [int(t.rounds) for t in traces]
     n_txns = sum(w.batch.n_txns for w in wls)
-    log(f"main path: {n_txns} txns in {N_BATCHES} batches of K={K}, "
+    log(f"main path: {n_txns} txns in {len(wls)} batches of K={K}, "
         f"O={N_OBJECTS}: {seconds:.3f} s, {n_txns / seconds:.1f} txns/s, "
         f"rounds per batch {rounds} ({seconds / sum(rounds) * 1e3:.2f} ms "
         f"per round), launches {launches}")
@@ -424,7 +533,7 @@ def phase_held_to_account(wls, gpu_session, gpu_traces):
     store = convert.store_to_numpy(gpu_session.store)
     assert np.array_equal(store["values"], values), "values != oracle"
     assert np.array_equal(store["versions"], versions), "versions != oracle"
-    assert int(store["gv"]) == gv == N_BATCHES * K
+    assert int(store["gv"]) == gv == len(wls) * K
     log(f"held to account: card == CPU run ({t_cpu:.1f} s) on fingerprint "
         f"{fp:#010x}, replay log and all {len(TRACE_FIELDS)} trace fields; "
         f"store == numpy serial oracle (gv {gv})")
@@ -480,6 +589,112 @@ def phase_round_breakdown(wl):
         total += ms
         log(f"  {ms:9.3f} ms  {name}")
     log(f"  {total:9.3f} ms  sum")
+
+
+def phase_pipelined_serving(wls):
+    """Phase 3b: the stream's 4,096 transactions admitted one by one to an
+    ingress pool, then served from its arrival journal three times on
+    the card: depth 0 and depth 2 at budget K, depth 1 at budget K / 2.
+    Held to one another, to the numpy oracle in the pool's drain order,
+    and measured: the speculation's own steps timed on a stale store."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import oracle, protocol
+    from repro_torch.core.engine import TRACE_FIELDS
+    from repro_torch.core.ingress import IngressPool, programs_from_batch
+    from repro_torch.core.session import PotSession
+    from repro_torch.core.tstore import make_store
+    from repro_torch.kernels import conflict, validate
+
+    t0 = time.perf_counter()
+    pool = IngressPool(capacity=N_BATCHES * K)
+    for w in wls:
+        for prog, lane in zip(programs_from_batch(w.batch),
+                              w.lanes.tolist()):
+            assert pool.admit(prog, lane=int(lane)).admitted
+    journal = pool.arrival_journal()
+    formed = IngressPool.replay(journal)[0].drain_all(K)
+    t_admit = time.perf_counter() - t0
+    n_txns = N_BATCHES * K
+    assert sum(fb.n_txns for fb in formed) == n_txns
+
+    runs = {}
+    for depth, budget in ((0, K), (2, K), (1, K // 2)):
+        s = PotSession(N_OBJECTS, engine="pcc", n_lanes=N_LANES,
+                       pipeline_depth=depth, device="cuda")
+        served = IngressPool.replay(journal)[0]
+        torch.cuda.synchronize()
+        conflict.reset_launches()
+        validate.reset_launches()
+        traces, seconds = timed(lambda: s.serve(served, budget=budget))
+        launches = dict(conflict.LAUNCHES, **validate.LAUNCHES)
+        runs[depth, budget] = (s, traces, seconds, launches, shape_counts())
+        assert served.depth == 0 and s.n_txns == n_txns
+        spec = {f: [int(getattr(t, f)) for t in traces]
+                for f in ("spec_executed", "spec_invalidated",
+                          "spec_rounds")}
+        log(f"  depth {depth}, budget {budget}: {len(traces)} batches, "
+            f"{seconds:.3f} s, {n_txns / seconds:.1f} txns/s, rounds "
+            f"{[int(t.rounds) for t in traces]}, spec_executed "
+            f"{spec['spec_executed']}, spec_invalidated "
+            f"{spec['spec_invalidated']}, spec_rounds "
+            f"{spec['spec_rounds']}; launches {launches}")
+        log(f"    by shape: {shape_counts()}")
+        if depth:
+            assert sum(spec["spec_executed"]) == n_txns
+            for name in ("conflict_matrix_bits_delta", "validate_bitsets"):
+                assert launches[name] > 0, f"{name} not launched"
+
+    (s0, t0_, *_), (s2, t2, *_), (s1, _, *_) = runs.values()
+    fp = s0.fingerprint()
+    for s in (s2, s1):
+        assert s.fingerprint() == fp, "served fingerprints differ"
+        assert s.replay_log() == s0.replay_log(), "replay logs differ"
+        for f in ("values", "versions", "gv"):
+            assert torch.equal(getattr(s.store, f), getattr(s0.store, f)), f
+    for i, (a, b) in enumerate(zip(t0_, t2)):
+        a, b = convert.trace_to_numpy(a), convert.trace_to_numpy(b)
+        for f in TRACE_FIELDS:
+            if not f.startswith("spec_"):
+                assert np.array_equal(a[f], b[f]), f"batch {i} trace.{f}"
+    values, versions, gv = oracle.serial_execute(
+        np.zeros((N_OBJECTS, 1), np.int32), np.zeros(N_OBJECTS, np.int32),
+        0, [convert.batch_to_numpy(fb.batch) for fb in formed],
+        [fb.seq for fb in formed])
+    store = convert.store_to_numpy(s0.store)
+    assert np.array_equal(store["values"], values), "values != oracle"
+    assert np.array_equal(store["versions"], versions), "versions != oracle"
+    assert int(store["gv"]) == gv == n_txns
+
+    # the speculation's own steps at the second batch's turn: its seed
+    # against the empty store, re-based onto the store the first batch
+    # left (from the oracle), against a fresh round 0 on that store
+    b1 = formed[1].batch.to("cuda")
+    first = oracle.serial_execute(
+        np.zeros((N_OBJECTS, 1), np.int32), np.zeros(N_OBJECTS, np.int32),
+        0, [convert.batch_to_numpy(formed[0].batch)], [formed[0].seq])
+    after0 = convert.store_from_numpy(
+        dict(values=first[0], versions=first[1], gv=first[2]),
+        device="cuda")
+    seed, t_spec = timed(lambda: protocol.spec_execute(
+        make_store(N_OBJECTS, device="cuda"), b1))
+    (_, n_inv, _), t_rebase = timed(
+        lambda: protocol.seed_round_state(b1, after0, seed))
+    _, t_fresh = timed(lambda: protocol.refresh_round_state(
+        protocol.init_round_state(b1, after0.values.clone(),
+                                  after0.versions.clone()),
+        b1, b1.n_ins > 0))
+    log(f"pipelined serving: {n_txns} vacation-high txns admitted one by "
+        f"one ({t_admit:.1f} s with the drain that checks them), served "
+        f"from the arrival journal at K={K} and O={N_OBJECTS}: depth 0 "
+        f"{runs[0, K][2]:.3f} s, depth 2 {runs[2, K][2]:.3f} s, depth 1 at "
+        f"budget {K // 2} {runs[1, K // 2][2]:.3f} s; one fingerprint "
+        f"{fp:#010x}, replay log and store; depth 0 == depth 2 in every "
+        f"trace field but spec_*; store == numpy oracle in the pool's drain "
+        f"order (gv {gv}).  Second batch's turn: spec_execute "
+        f"{t_spec * 1e3:.1f} ms, re-base {t_rebase * 1e3:.1f} ms "
+        f"({int(n_inv)} rows invalid), a fresh round 0 {t_fresh * 1e3:.1f} ms")
+    return runs[2, K][3]
 
 
 def phase_validate(wl):
@@ -701,6 +916,67 @@ def phase_engines(wl):
         f"through PCC; every engine == its CPU run at K={k_cpu} "
         f"({t_cpu:.1f} s of CPU) in every trace field")
     return launches
+
+
+def phase_engines_pipelined(wls):
+    """Phase 10b: each engine's stream of the first ENGINES_CPU_K rows of
+    the main path's first three batches through ``run_stream`` at depth
+    2 on the card, held to its serial run on the card (every field but
+    ``spec_*``) and to the pipelined run on the CPU (every field); the
+    card's runs timed in turns (serial, pipelined, serial)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.core.engine import TRACE_FIELDS
+    from repro_torch.core.session import PotSession
+    from repro_torch.kernels import conflict, validate
+
+    k = ENGINES_CPU_K
+    batches = [w.batch.rows(torch.arange(k)) for w in wls[:3]]
+    lanes = [w.lanes[:k] for w in wls[:3]]
+    cpu_seconds = 0.0
+    for engine in ("pcc", "pogl", "destm", "occ"):
+        # serial and pipelined on the card in turns (serial, pipelined,
+        # serial), then pipelined on the CPU
+        runs = []
+        for device, depth in (("cuda", 0), ("cuda", 2), ("cuda", 0),
+                              ("cpu", 2)):
+            s = PotSession(N_OBJECTS, engine=engine, n_lanes=N_LANES,
+                           pipeline_depth=depth, device=device)
+            conflict.reset_launches()
+            validate.reset_launches()
+            traces, seconds = timed(lambda: s.run_stream(batches, lanes))
+            runs.append((s, [convert.trace_to_numpy(t) for t in traces],
+                         seconds, dict(conflict.LAUNCHES,
+                                       **validate.LAUNCHES)))
+        cpu_seconds += runs[3][2]
+        serial, piped = runs[0][1], runs[1][1]
+        for s, traces, _, _ in runs[1:]:
+            assert s.fingerprint() == runs[0][0].fingerprint(), \
+                f"{engine} fingerprints differ"
+            assert s.replay_log() == runs[0][0].replay_log(), \
+                f"{engine} replay logs differ"
+            twin = serial if s.pipeline_depth == 0 else piped
+            for i, (a, b, c) in enumerate(zip(serial, traces, twin)):
+                for f in TRACE_FIELDS:
+                    assert np.array_equal(b[f], c[f]), \
+                        f"{engine} batch {i} depth {s.pipeline_depth} on " \
+                        f"{s.device}: {f}"
+                    if not f.startswith("spec_"):
+                        assert np.array_equal(a[f], b[f]), \
+                            f"{engine} batch {i} pipelined != serial: {f}"
+        launches = runs[1][3]
+        assert sum(int(t["spec_executed"]) for t in piped) == 3 * k
+        assert launches["validate_bitsets"] > 0, engine
+        ms = [r[2] * 1e3 for r in runs[:3]]
+        log(f"  {engine:6s} 3 x {k} txns, in turns: serial {ms[0]:.1f}, "
+            f"pipelined (depth 2) {ms[1]:.1f}, serial {ms[2]:.1f} ms; "
+            f"spec_executed "
+            f"{[int(t['spec_executed']) for t in piped]}, spec_invalidated "
+            f"{[int(t['spec_invalidated']) for t in piped]}, spec_rounds "
+            f"{[int(t['spec_rounds']) for t in piped]}; launches {launches}")
+    log(f"engines pipelined: all four at depth 2 == their serial runs on "
+        f"the card (every field but spec_*) == their CPU runs (every "
+        f"field; {cpu_seconds:.1f} s of CPU), K={k}, 3 batches")
 
 
 def occ_witness():
@@ -1431,15 +1707,20 @@ def main() -> int:
            for b in range(N_BATCHES + 1)]
     stream, extra = wls[:N_BATCHES], wls[N_BATCHES]
     kernels = phase_kernels(stream[0].batch.to("cuda"))
+    phase_spec_strip(stream[0].batch.to("cuda"), stream[1].batch.to("cuda"))
     kernels["kv_commit"] = phase_kv_commit()
     adamw, spec_launches = phase_adamw()
     kernels.update(adamw)
-    kernels["validate_bitsets"], validate_launches = phase_validate(stream[0])
-    gpu_session, gpu_traces, launches = phase_main_path(stream)
-    launches["validate_bitsets"] = validate_launches
-    phase_held_to_account(stream, gpu_session, gpu_traces)
+    kernels["validate_bitsets"], _ = phase_validate(stream[0])
+    main_stream = stream[:MAIN_PATH_BATCHES]
+    gpu_session, gpu_traces, launches = phase_main_path(main_stream)
+    phase_held_to_account(main_stream, gpu_session, gpu_traces)
     phase_round_breakdown(extra)
     del gpu_session, gpu_traces
+    # the validation kernel's launches on this slice's path: the depth-2
+    # serving run's (phase 2d drives it once through ops.validate)
+    launches["validate_bitsets"] = \
+        phase_pipelined_serving(stream)["validate_bitsets"]
     params, launches["kv_commit"] = phase_serve()
     phase_serve_held(params)
     del params                # the 24 GB of serving weights
@@ -1448,6 +1729,7 @@ def main() -> int:
     launches["fused_adamw_speculative"] = spec_launches
     phase_train_held()
     phase_engines(stream[0])
+    phase_engines_pipelined(stream)
 
     summary = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

@@ -9,6 +9,11 @@ object with the attributes — the reference's own ``TStore``,
 arrays); ``*_to_numpy`` returns a dict of numpy arrays that the
 reference's constructors accept after ``jnp.asarray``.
 
+A cross-batch speculation seed crosses with :func:`seed_from_numpy` /
+:func:`seed_to_numpy`, and an ingress-formed batch with
+:func:`formed_batch_from_numpy` / :func:`formed_batch_to_numpy`, so that
+both packages can be handed the same seed and the same batches.
+
 The serving path's LM weights cross with :func:`lm_params_from_numpy`,
 the training path's whole state (weights, AdamW moments and counters)
 with :func:`train_state_from_numpy`.
@@ -23,8 +28,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import ExecTrace
+from repro_torch.core.ingress import FormedBatch
+from repro_torch.core.protocol import SpecSeed
 from repro_torch.core.tstore import TStore
-from repro_torch.core.txn import TxnBatch
+from repro_torch.core.txn import TxnBatch, TxnResult
 from repro_torch.models import lm
 from repro_torch.models.blocks import C
 from repro_torch.models.config import ModelConfig
@@ -80,6 +87,58 @@ def trace_from_numpy(src, device="cuda") -> ExecTrace:
 
 def trace_to_numpy(trace: ExecTrace) -> dict[str, np.ndarray]:
     return _to_numpy(trace)
+
+
+_SEED_TABLES = {"conflict": bool, "foot_bits": np.int32,
+                "write_bits": np.int32}
+
+
+def seed_from_numpy(src, device="cuda") -> SpecSeed:
+    """A speculation seed from ``res`` (the five TxnResult fields),
+    ``conflict`` / ``foot_bits`` / ``write_bits`` (arrays, or None where
+    the formulation carries no table) and ``snap_gv``; the reference's own
+    ``SpecSeed`` qualifies."""
+    tables = {}
+    for name, dtype in _SEED_TABLES.items():
+        a = _field_tree(src, name)
+        tables[name] = None if a is None else torch.from_numpy(
+            np.array(a, dtype=dtype)).to(device)
+    return SpecSeed(res=_from_numpy(TxnResult, _field_tree(src, "res"),
+                                    device),
+                    snap_gv=torch.from_numpy(np.array(
+                        _field(src, "snap_gv"), np.int32)).to(device),
+                    **tables)
+
+
+def seed_to_numpy(seed: SpecSeed) -> dict:
+    """A seed as numpy: ``res`` a dict of its five fields, a table None
+    where the seed has none."""
+    out = {name: None if getattr(seed, name) is None
+           else getattr(seed, name).cpu().numpy() for name in _SEED_TABLES}
+    return dict(out, res=_to_numpy(seed.res),
+                snap_gv=seed.snap_gv.cpu().numpy())
+
+
+_FORMED_ARRAYS = ("lanes", "seq", "txn_ids", "stamps")
+
+
+def formed_batch_from_numpy(src, device="cpu") -> FormedBatch:
+    """An ingress-formed batch from ``batch`` (the TxnBatch fields),
+    ``lanes``, ``seq``, ``txn_ids``, ``stamps`` (int64), ``ladder`` and
+    ``budget``; the reference's own ``FormedBatch`` qualifies.  The pool
+    forms batches on the host, so the batch stays on the CPU unless
+    ``device`` says otherwise."""
+    return FormedBatch(
+        batch=batch_from_numpy(_field_tree(src, "batch"), device),
+        **{f: np.array(_field(src, f), np.int64) for f in _FORMED_ARRAYS},
+        ladder=str(_field_tree(src, "ladder")),
+        budget=int(_field_tree(src, "budget")))
+
+
+def formed_batch_to_numpy(fb: FormedBatch) -> dict:
+    return dict(batch=batch_to_numpy(fb.batch),
+                **{f: np.asarray(getattr(fb, f)) for f in _FORMED_ARRAYS},
+                ladder=fb.ladder, budget=fb.budget)
 
 
 def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda",

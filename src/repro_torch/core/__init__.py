@@ -1,5 +1,5 @@
 """Pot core on PyTorch: preordered transactions for deterministic
-execution (the port of ``repro.core``, serial path, dense store).
+execution (the port of ``repro.core``, dense store).
 
 A sequencer fixes the serialization order before execution, then an
 engine executes each batch against the store: ``"pcc"`` (Pot, alias
@@ -13,36 +13,55 @@ sequence order)::
     traces = session.run_stream(batches, lanes)
     session.fingerprint(), session.replay_log()
 
+``PotSession(..., pipeline_depth=D)`` speculates up to D batches ahead
+of the committed store with the same outcome, and ``serve(pool)`` drains
+an ``IngressPool`` that forms batches from single-transaction arrivals.
+
 Building blocks: ``TStore`` / ``make_store`` / ``fingerprint``,
 ``TxnBatch`` / ``make_batch`` and the VM (``run_all``, ``run_live``,
-``run_live_compact``), the sequencers, ``get_engine`` / ``ExecTrace``.
+``run_live_compact``), the sequencers, ``get_engine`` / ``ExecTrace``,
+``SpecSeed`` (a speculative round 0), ``metrics.report_from_trace``.
 """
 
 from repro_torch.core.engine import (ENGINES, MODE_FAST, MODE_PREFIX,
-                                     MODE_SPEC, MODE_UNSET, EngineDef,
-                                     ExecTrace, get_engine, make_trace)
-from repro_torch.core.destm import destm_execute
-from repro_torch.core.occ import occ_execute
-from repro_torch.core.pcc import pcc_execute
+                                     MODE_SPEC, MODE_UNSET, Engine,
+                                     EngineDef, ExecTrace, get_engine,
+                                     make_trace)
+from repro_torch.core.destm import DestmTrace, destm_execute
+from repro_torch.core.ingress import (AdmitResult, FormedBatch,
+                                      IngressPool, JournalError, PoolStats,
+                                      programs_from_batch)
+from repro_torch.core.metrics import EngineReport, report_from_trace
+from repro_torch.core.occ import OccTrace, occ_execute
+from repro_torch.core.pcc import PccTrace, pcc_execute
 from repro_torch.core.pogl import pogl_execute
+from repro_torch.core.protocol import SpecSeed
 from repro_torch.core.sequencer import (ExplicitSequencer, ReplaySequencer,
-                                        RoundRobinSequencer, seq_to_order)
+                                        RoundRobinSequencer, seq_to_order,
+                                        sequencer_from_state,
+                                        sequencer_state)
 from repro_torch.core.session import PotSession
-from repro_torch.core.tstore import (TStore, dense_image, fingerprint,
-                                     make_store, store_with)
+from repro_torch.core.tstore import (DenseStore, TStore, dense_image,
+                                     fingerprint, make_store, store_with)
 from repro_torch.core.txn import (NOP, READ, RMW, WRITE, TxnBatch,
                                   TxnResult, make_batch, next_pow2,
                                   pad_batch, run_all, run_live,
                                   run_live_compact, run_txn)
 
 __all__ = [
-    "PotSession", "ExecTrace", "EngineDef", "ENGINES", "get_engine",
-    "make_trace", "MODE_UNSET", "MODE_FAST", "MODE_PREFIX", "MODE_SPEC",
-    "TStore", "make_store", "store_with", "dense_image", "fingerprint",
+    "PotSession", "ExecTrace", "Engine", "EngineDef", "ENGINES",
+    "get_engine", "make_trace",
+    "MODE_UNSET", "MODE_FAST", "MODE_PREFIX", "MODE_SPEC",
+    "TStore", "DenseStore", "make_store", "store_with", "dense_image",
+    "fingerprint",
     "TxnBatch", "TxnResult", "make_batch", "run_all", "run_live",
     "run_live_compact", "run_txn", "pad_batch", "next_pow2",
     "NOP", "READ", "WRITE", "RMW",
     "RoundRobinSequencer", "ReplaySequencer", "ExplicitSequencer",
-    "seq_to_order",
-    "pcc_execute", "pogl_execute", "destm_execute", "occ_execute",
+    "seq_to_order", "sequencer_state", "sequencer_from_state",
+    "IngressPool", "FormedBatch", "AdmitResult", "PoolStats",
+    "programs_from_batch", "JournalError",
+    "SpecSeed", "EngineReport", "report_from_trace",
+    "pcc_execute", "PccTrace", "occ_execute", "OccTrace",
+    "pogl_execute", "destm_execute", "DestmTrace",
 ]

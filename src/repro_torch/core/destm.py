@@ -34,6 +34,11 @@ form (``earlier_writer_conflicts(..., None, ...)``) and the pair kernel's
 strips.  The reference's ``while_loop`` s are host loops here, with one
 sync per round and a few per trip.
 
+With a ``seed`` (cross-batch pipelining), round 0's members take their
+rows from the re-based speculation (``protocol.seed_round_state``, whose
+table is dropped so the carried state is the unseeded loop's) and round
+0 charges its accounting without re-walking them.
+
 A lane with n transactions needs at least n rounds, and every member
 waits at the barrier for the slowest one (``barrier_ops``): the cost
 structure of the paper's Fig. 7/9/10.  The final store equals PoGL's
@@ -42,11 +47,13 @@ under the same order.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core import protocol
 from repro_torch.core.engine import (EngineDef, ExecTrace, make_trace,
-                                     not_ported, rank_from_order,
+                                     rank_from_order,
                                      register_engine, seq_rank)
 from repro_torch.core.tstore import TStore, store_with
 from repro_torch.core.txn import TxnBatch, run_live, run_txn
@@ -63,7 +70,8 @@ def _destm_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
                    incremental: bool = True,
                    compact: bool = True,
                    wave: bool = True,
-                   seed=None) -> tuple[TStore, ExecTrace]:
+                   seed: protocol.SpecSeed | None = None
+                   ) -> tuple[TStore, ExecTrace]:
     """Execute a batch under DeSTM.
 
     Args:
@@ -83,14 +91,13 @@ def _destm_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
              rather than masked over (K, L); only with ``incremental``.
       wave:  wave retries (module docstring); False takes the serial
              token walk.
-      seed:  a cross-batch speculative round 0; not ported yet (raises
-             ``NotImplementedError``).
+      seed:  a :class:`protocol.SpecSeed`: round 0's members ran against
+             an earlier store and are re-based; the store and trace equal
+             the unseeded call's but for the ``spec_*`` fields.
     Returns:
       (new store, trace); ``new_store.gv`` is ``store.gv`` plus the
       number of real rows.
     """
-    if seed is not None:
-        raise not_ported("seeded execution (seed=)", 7)
     k = batch.n_txns
     dev = store.device
     n_obj = store.n_objects
@@ -128,14 +135,24 @@ def _destm_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
         live = sel_pos < k
         sel_txn = order[sel_pos.clamp(0, k - 1)]
 
-        # ---- speculative execution of the members only
+        # ---- speculative execution of the members only; a seeded round
+        # 0 takes the re-based rows (executed against the batch-start
+        # image, as round 0's members are) and charges the accounting
+        seeded0 = seed is not None and rnd == 0
         if incremental and compact:
             live_t = sel_t
-            rs, cres = protocol.refresh_round_state_gathered(
-                rs, batch, sel_txn, live)
+            if seeded0:
+                rs = protocol.charge_round_state(rs, batch, sel_t, n_lanes)
+                cres = rs.res.map(lambda a: a[sel_txn])
+            else:
+                rs, cres = protocol.refresh_round_state_gathered(
+                    rs, batch, sel_txn, live)
         else:
             live_t = sel_t if incremental else torch.ones_like(real)
-            rs = protocol.refresh_round_state(rs, batch, live_t)
+            if seeded0:
+                rs = protocol.charge_round_state(rs, batch, live_t, k)
+            else:
+                rs = protocol.refresh_round_state(rs, batch, live_t)
             cres = rs.res.map(lambda a: a[sel_txn])
         values, versions = rs.values, rs.versions
         sn_c = gv0 + 1 + sel_pos                     # version stamps
@@ -224,9 +241,20 @@ def _destm_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
         return protocol.commit_round_state(rs, values, versions), \
             done | sel_t
 
-    rs = protocol.init_round_state(batch, store.values.clone(),
-                                   store.versions.clone(),
-                                   track_conflict=False)
+    if seed is not None:
+        rs, spec_inv, spec_rnds = protocol.seed_round_state(
+            batch, store, seed, compact=(incremental and compact))
+        # DeSTM carries no table: drop the seed's, so the carried state
+        # is the unseeded loop's
+        rs = dataclasses.replace(rs, conflict=None, foot_bits=None,
+                                 write_bits=None)
+        spec = dict(spec_executed=n_real, spec_invalidated=spec_inv,
+                    spec_rounds=spec_rnds)
+    else:
+        rs = protocol.init_round_state(batch, store.values.clone(),
+                                       store.versions.clone(),
+                                       track_conflict=False)
+        spec = {}
     done, rnd = ~real, 0
     while bool((~done).any()) and rnd < limit:
         rs, done = round_body(rs, done, rnd)
@@ -253,7 +281,7 @@ def _destm_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
         retry_waves=torch.tensor(tr["retry_waves"], dtype=_I32, device=dev),
         waves_per_round=tr["waves_per_round"],
         # a txn executes only in its commit round
-        first_round=commit_round, commit_pos=commit_pos)
+        first_round=commit_round, commit_pos=commit_pos, **spec)
     return store_with(store, rs.values, rs.versions,
                       store.gv + n_real), trace
 
@@ -265,6 +293,11 @@ def _destm_raw(store, batch, seq, lanes, n_lanes):
     return _destm_execute(store, batch, seq, lanes, n_lanes)
 
 
+def _destm_raw_spec(store, batch, seq, lanes, n_lanes, seed):
+    return _destm_execute(store, batch, seq, lanes, n_lanes, seed=seed)
+
+
 register_engine(EngineDef(
     "destm", _destm_raw,
-    doc="DeSTM analog — one txn per lane per round, barrier-separated"))
+    doc="DeSTM analog — one txn per lane per round, barrier-separated",
+    raw_spec=_destm_raw_spec))

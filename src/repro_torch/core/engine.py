@@ -5,6 +5,9 @@ Every engine has the signature
 
     raw(store, batch, seq, lanes, n_lanes) -> (TStore, ExecTrace)
 
+and a seeded twin ``raw_spec(store, batch, seq, lanes, n_lanes, seed)``
+behind cross-batch pipelining (``seed`` a ``protocol.SpecSeed``).
+
 where ``seq`` holds the sequencer's distinct 1-based sequence numbers and
 ``lanes`` / ``n_lanes`` the lane structure, which only DeSTM reads.  OCC
 takes the sequence order as its *arrival* interleaving
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Callable
+from typing import Callable, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -65,6 +68,11 @@ class ExecTrace:
     @property
     def n_txns(self) -> int:
         return self.commit_round.shape[0]
+
+    @property
+    def waves(self) -> torch.Tensor:
+        """OCC-era name for :attr:`rounds`."""
+        return self.rounds
 
     def live_counts(self) -> np.ndarray:
         """Per-round live transaction counts, trimmed to the rounds run."""
@@ -119,14 +127,34 @@ def seq_rank(seq: torch.Tensor) -> torch.Tensor:
     return rank_from_order(torch.argsort(seq, stable=True))
 
 
+@runtime_checkable
+class Engine(Protocol):
+    """What PotSession and the benchmarks need from an engine."""
+
+    name: str
+
+    def execute(self, store: TStore, batch: TxnBatch, seq, *,
+                lanes=None, n_lanes: int = 1) -> tuple[TStore, ExecTrace]:
+        ...
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineDef:
     """A registered engine: a uniform-signature function
-    ``raw(store, batch, seq, lanes, n_lanes)``."""
+    ``raw(store, batch, seq, lanes, n_lanes)``.
+
+    ``raw_spec(store, batch, seq, lanes, n_lanes, seed)`` is its seeded
+    twin: ``seed`` is a :class:`~repro_torch.core.protocol.SpecSeed`, a
+    speculative round 0 against an earlier store; the engine re-bases it
+    onto ``store``, re-executes only the rows it invalidates, and returns
+    the store and trace of ``raw`` on the same inputs (only the
+    ``spec_*`` fields differ).  All four registry engines have one;
+    ``PotSession`` serves an engine without one on the serial path."""
 
     name: str
     raw: Callable[..., tuple[TStore, "ExecTrace"]]
     doc: str = ""
+    raw_spec: Callable[..., tuple[TStore, "ExecTrace"]] | None = None
 
     def execute(self, store: TStore, batch: TxnBatch, seq, *,
                 lanes=None, n_lanes: int = 1) -> tuple[TStore, ExecTrace]:

@@ -12,7 +12,8 @@ carried conflict table (the delta kernel at the full rung and the pair
 kernel's strips below it, on CUDA); OCC's greedy rule (commit iff no
 conflict with an earlier *committing* transaction, no prefix cut-off) is
 the blocked fixpoint ``protocol.wave_commit``; one fused write-back
-installs the wave.
+installs the wave.  With a ``seed`` (cross-batch pipelining), wave 0's
+read phase is the re-based speculation (``protocol.seed_round_state``).
 
 The final store depends on ``arrival``: other interleavings, other
 outcomes.  That nondeterminism is what Pot removes.  The commit order is
@@ -26,7 +27,7 @@ import torch
 
 from repro_torch.core import protocol
 from repro_torch.core.engine import (EngineDef, ExecTrace, make_trace,
-                                     not_ported, rank_from_order,
+                                     rank_from_order,
                                      register_engine)
 from repro_torch.core.tstore import TStore, store_with
 from repro_torch.core.txn import TxnBatch
@@ -42,7 +43,8 @@ def _occ_execute(store: TStore, batch: TxnBatch, arrival: torch.Tensor,
                  incremental: bool = True,
                  compact: bool = True,
                  wave_block: int = 8,
-                 seed=None) -> tuple[TStore, ExecTrace]:
+                 seed: protocol.SpecSeed | None = None
+                 ) -> tuple[TStore, ExecTrace]:
     """Execute a batch under OCC; ``arrival[p]`` is the transaction that
     reaches its commit p-th.
 
@@ -61,16 +63,16 @@ def _occ_execute(store: TStore, batch: TxnBatch, arrival: torch.Tensor,
              ``protocol.compact_ladder(K)`` widths; only meaningful with
              ``incremental``.
       wave_block: conflict queries per ``wave_commit`` trip.
-      seed:  a cross-batch speculative round 0; not ported yet (raises
-             ``NotImplementedError``).
+      seed:  a :class:`protocol.SpecSeed`: wave 0 ran against an earlier
+             store and is re-based (see :mod:`repro_torch.core.pcc`); the
+             store and trace equal the unseeded call's but for the
+             ``spec_*`` fields.
     Returns:
       (new store, trace); ``new_store.gv`` is ``store.gv`` plus the
       number of committed transactions.  The decisions are the same for
       every setting of the three knobs; ``wave_trips`` and the work
       counters are what they change.
     """
-    if seed is not None:
-        raise not_ported("seeded execution (seed=)", 7)
     k = batch.n_txns
     dev = store.device
     n_obj = store.n_objects
@@ -92,7 +94,11 @@ def _occ_execute(store: TStore, batch: TxnBatch, arrival: torch.Tensor,
             rs, done, n_comm, wave = state
             pending_t = ~done
             live = pending_t if incremental else torch.ones_like(real)
-            if full_rung:
+            if seed is not None and wave == 0:
+                # wave 0 ran speculatively and was re-based onto this
+                # store: charge its accounting without re-walking
+                rs = protocol.charge_round_state(rs, batch, live, width)
+            elif full_rung:
                 rs = protocol.refresh_round_state(rs, batch, live)
             else:
                 rs = protocol.refresh_round_state_compact(
@@ -137,8 +143,15 @@ def _occ_execute(store: TStore, batch: TxnBatch, arrival: torch.Tensor,
 
         return cond
 
-    rs0 = protocol.init_round_state(batch, store.values.clone(),
-                                    store.versions.clone())
+    if seed is not None:
+        rs0, spec_inv, spec_rnds = protocol.seed_round_state(
+            batch, store, seed, compact=(incremental and compact))
+        spec = dict(spec_executed=real.sum(dtype=_I32),
+                    spec_invalidated=spec_inv, spec_rounds=spec_rnds)
+    else:
+        rs0 = protocol.init_round_state(batch, store.values.clone(),
+                                        store.versions.clone())
+        spec = {}
     ladder = (protocol.compact_ladder(k) if (incremental and compact)
               else [k])
     rs, done, n_comm, wave = protocol.run_compact_cascade(
@@ -154,7 +167,7 @@ def _occ_execute(store: TStore, batch: TxnBatch, arrival: torch.Tensor,
         walked_slots=rs.walked_slots,
         live_per_round=tr["live_per_round"],
         # a txn that retried r waves committed in wave r (vacant: none)
-        commit_round=torch.where(real, tr["retries"], -1).to(_I32))
+        commit_round=torch.where(real, tr["retries"], -1).to(_I32), **spec)
     gv = torch.tensor(gv0 + n_comm, dtype=_I32, device=dev)
     return store_with(store, rs.values, rs.versions, gv), trace
 
@@ -169,6 +182,13 @@ def _occ_raw(store, batch, seq, lanes, n_lanes):
     return _occ_execute(store, batch, torch.argsort(seq, stable=True))
 
 
+def _occ_raw_spec(store, batch, seq, lanes, n_lanes, seed):
+    del lanes, n_lanes
+    return _occ_execute(store, batch, torch.argsort(seq, stable=True),
+                        seed=seed)
+
+
 register_engine(EngineDef(
     "occ", _occ_raw,
-    doc="traditional OCC baseline — commit order = arrival interleaving"))
+    doc="traditional OCC baseline — commit order = arrival interleaving",
+    raw_spec=_occ_raw_spec))

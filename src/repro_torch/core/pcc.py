@@ -17,6 +17,10 @@ serialization order:
    transaction; it re-executes against the fresh image and commits
    unconditionally in the same round.
 
+With a ``seed`` (cross-batch pipelining), round 0's read phase already
+ran against an earlier store: ``protocol.seed_round_state`` re-bases it
+and round 0 charges its accounting without re-walking the batch.
+
 The reference's ``lax.while_loop`` cascade is a host loop: each round
 reads back one count (how many committed) to decide the next.  The
 result depends only on (store, transactions, sequence order).
@@ -29,7 +33,7 @@ import torch
 from repro_torch.core import protocol
 from repro_torch.core.engine import (MODE_FAST, MODE_PREFIX, MODE_SPEC,
                                      MODE_UNSET, EngineDef, ExecTrace,
-                                     make_trace, not_ported,
+                                     make_trace,
                                      rank_from_order, register_engine)
 from repro_torch.core.tstore import TStore, store_with
 from repro_torch.core.txn import TxnBatch, run_txn
@@ -46,7 +50,8 @@ def _pcc_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
                  live_promotion: bool = True,
                  incremental: bool = True,
                  compact: bool = True,
-                 seed=None) -> tuple[TStore, ExecTrace]:
+                 seed: protocol.SpecSeed | None = None
+                 ) -> tuple[TStore, ExecTrace]:
     """Execute a batch of preordered transactions under PCC.
 
     Args:
@@ -65,14 +70,15 @@ def _pcc_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
       compact: run the rounds as a cascade over
              ``protocol.compact_ladder(K)`` widths; only meaningful with
              ``incremental``.
-      seed:  a cross-batch speculative round 0; not ported yet (raises
-             ``NotImplementedError``).
+      seed:  a :class:`protocol.SpecSeed`, this batch's round 0 run
+             against an earlier store (``PotSession(pipeline_depth=D)``):
+             re-based by ``protocol.seed_round_state``; the store and
+             trace equal the unseeded call's but for the ``spec_*``
+             fields.
     Returns:
       (new store, trace); ``new_store.gv`` is ``store.gv`` plus the
       number of committed transactions.
     """
-    if seed is not None:
-        raise not_ported("seeded execution (seed=)", 7)
     k = batch.n_txns
     dev = store.device
     n_obj = store.n_objects
@@ -102,7 +108,11 @@ def _pcc_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
             # rung they execute gather-compacted at (width, L) ------------
             pending_t = real & (rank >= n_comm)
             live = pending_t if incremental else torch.ones_like(real)
-            if full_rung:
+            if seed is not None and rnd == 0:
+                # round 0 ran speculatively and was re-based onto this
+                # store: charge its accounting without re-walking
+                rs = protocol.charge_round_state(rs, batch, live, width)
+            elif full_rung:
                 rs = protocol.refresh_round_state(rs, batch, live)
             else:
                 rs = protocol.refresh_round_state_compact(
@@ -176,8 +186,15 @@ def _pcc_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
 
         return cond
 
-    rs0 = protocol.init_round_state(batch, store.values.clone(),
-                                    store.versions.clone())
+    if seed is not None:
+        rs0, spec_inv, spec_rnds = protocol.seed_round_state(
+            batch, store, seed, compact=(incremental and compact))
+        spec = dict(spec_executed=real.sum(dtype=_I32),
+                    spec_invalidated=spec_inv, spec_rounds=spec_rnds)
+    else:
+        rs0 = protocol.init_round_state(batch, store.values.clone(),
+                                        store.versions.clone())
+        spec = {}
     ladder = (protocol.compact_ladder(k) if (incremental and compact)
               else [k])
     rs, n_comm, rnd = protocol.run_compact_cascade(
@@ -199,7 +216,7 @@ def _pcc_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
         # PCC commits in sequence order: position = rank in the order.
         # Vacant rows and rows a max_rounds cap left uncommitted are not
         # part of the history
-        commit_pos=torch.where(committed, rank, -1).to(_I32))
+        commit_pos=torch.where(committed, rank, -1).to(_I32), **spec)
     gv = torch.tensor(gv0 + n_comm, dtype=_I32, device=dev)
     return store_with(store, rs.values, rs.versions, gv), trace
 
@@ -212,6 +229,12 @@ def _pcc_raw(store, batch, seq, lanes, n_lanes):
     return _pcc_execute(store, batch, seq)
 
 
+def _pcc_raw_spec(store, batch, seq, lanes, n_lanes, seed):
+    del lanes, n_lanes
+    return _pcc_execute(store, batch, seq, seed=seed)
+
+
 register_engine(EngineDef(
     "pcc", _pcc_raw,
-    doc="Pot Concurrency Control — ordered prefix commit + live promotion"))
+    doc="Pot Concurrency Control — ordered prefix commit + live promotion",
+    raw_spec=_pcc_raw_spec))

@@ -25,6 +25,13 @@ one fused write-back (:func:`fused_write_back`, winner per address by
 questions across two result blocks (:func:`cross_writer_conflicts`,
 the pair kernel's rectangular strips).
 
+**Cross-batch speculation.**  A pipelined session runs a batch's round 0
+against an earlier store (:func:`spec_execute`, a :class:`SpecSeed`);
+when the batch's turn comes, :func:`seed_round_state` re-executes only
+the rows whose read set was written since (``versions > snap_gv``), and
+the engine's round 0 charges its ordinary accounting
+(:func:`charge_round_state`) instead of re-walking the batch.
+
 **Written-set helpers.**  :func:`footprint_conflicts` and
 :func:`mark_writes` test and grow an (O,) bool set of written objects:
 the validation step of the serial token walk, for many rows at once.
@@ -295,6 +302,120 @@ def refresh_round_state_compact(state: RoundState, batch: TxnBatch,
     idx, valid = gather_live_indices(live, width)
     state, cres = refresh_round_state_gathered(state, batch, idx, valid)
     return state, cres, idx, valid
+
+
+# --------------------------------------------------------------------------
+# Cross-batch speculative pipelining
+# --------------------------------------------------------------------------
+#
+# While earlier batches commit, PotSession runs batch n+1's round-0 read
+# phase and conflict analysis against the store as it stands at enqueue
+# time (spec_execute) and keeps them as a SpecSeed.  At the batch's turn
+# the engine re-bases the seed onto the current store (seed_round_state):
+# rows whose read set hit an address written after the snapshot
+# (versions > snap_gv; version stamps are globally monotone sequence
+# numbers) re-execute through one rung of the compact ladder; every other
+# row's cached result already equals a fresh round 0, because a row's
+# execution is a pure function of the values it reads.  Round 0 then
+# charges its ordinary accounting without re-walking the batch, and the
+# rest of the run is the serial computation on the same inputs.
+
+
+@dataclasses.dataclass
+class SpecSeed:
+    """A speculative round 0 of one batch against an earlier store: the
+    cached results and conflict structure a seeded engine re-bases.
+    ``conflict`` / ``foot_bits`` / ``write_bits`` are present exactly when
+    :class:`RoundState` carries them (the matrix formulation).  A seed
+    owns its tensors: nothing the session or an engine writes in place
+    aliases them, ``snap_gv`` included."""
+
+    res: TxnResult                    # (K rows) speculative executions
+    conflict: torch.Tensor | None     # (K, K) bool speculative table
+    foot_bits: torch.Tensor | None    # (K, W) int32 packed footprints
+    write_bits: torch.Tensor | None   # (K, W) int32 packed write sets
+    snap_gv: torch.Tensor             # () int32, store.gv at the snapshot
+
+
+def spec_execute(store, batch: TxnBatch) -> SpecSeed:
+    """Run ``batch``'s round-0 read phase and conflict analysis against
+    ``store``'s current image (every real row live; the delta kernel in
+    the matrix formulation) and capture it as a :class:`SpecSeed`.  The
+    store is only read."""
+    rs = init_round_state(batch, store.values, store.versions)
+    rs = refresh_round_state(rs, batch, batch.n_ins > 0)
+    return SpecSeed(res=rs.res, conflict=rs.conflict,
+                    foot_bits=rs.foot_bits, write_bits=rs.write_bits,
+                    snap_gv=store.gv.clone())
+
+
+def speculation_invalid(res: TxnResult, versions: torch.Tensor,
+                        snap_gv: torch.Tensor) -> torch.Tensor:
+    """(K,) bool: rows whose logged read set touches an address written
+    after the snapshot (``versions > snap_gv``).  Reads alone decide: a
+    row's writes are a function of its reads.  Conservative only where a
+    logged read-your-writes read hits a dirty address (a needless
+    re-execution, never a wrong accept)."""
+    return kernel_ops.spec_read_invalid(res.raddrs, res.rn, versions,
+                                        snap_gv, versions.shape[0])
+
+
+def seed_round_state(batch: TxnBatch, store, seed: SpecSeed,
+                     compact: bool = True
+                     ) -> tuple[RoundState, int, int]:
+    """Re-base a :class:`SpecSeed` onto ``store``: validate the speculated
+    rows, re-execute the invalidated real rows at the narrowest rung of
+    :func:`compact_ladder` they fit (the full rung: the delta kernel; a
+    compact one: the pair kernel's strips), and return a RoundState whose
+    ``res`` and conflict structure equal a fresh round-0 refresh of the
+    whole batch against ``store``, with its work counters zeroed so that
+    the engine's round 0 charges its ordinary accounting on top.  The
+    state owns a copy of the store's image, as the engines' own.
+
+    The reference decides the rung with one ``lax.cond`` per rung; here
+    one host read of the invalidated count does (one sync per batch).
+    Returns ``(state, n_invalid, spec_rounds)``, the two counts () int32
+    tensors, ``spec_rounds`` 1 iff a row re-executed."""
+    k = batch.n_txns
+    dev = store.device
+    z = lambda shape, dtype=_I32: torch.zeros(shape, dtype=dtype, device=dev)
+    rs = RoundState(
+        values=store.values.clone(), versions=store.versions.clone(),
+        res=seed.res, conflict=seed.conflict, foot_bits=seed.foot_bits,
+        write_bits=seed.write_bits, live=z((k,), torch.bool),
+        live_txns=z(()), live_slots=z(()), walked_slots=z(()))
+    invalid = speculation_invalid(seed.res, store.versions,
+                                  seed.snap_gv) & (batch.n_ins > 0)
+    n_inv = int(invalid.sum())
+    if n_inv:
+        ladder = compact_ladder(k) if compact else [k]
+        nxt = ladder[1:] + [0]
+        width = next(w for w, n in zip(ladder, nxt) if n_inv > n)
+        if width >= k:
+            rs = refresh_round_state(rs, batch, invalid)
+        else:
+            rs = refresh_round_state_compact(rs, batch, invalid, width)[0]
+        rs = dataclasses.replace(
+            rs, live=z((k,), torch.bool), live_txns=z(()),
+            live_slots=z(()), walked_slots=z(()))
+    count = lambda v: torch.tensor(v, dtype=_I32, device=dev)
+    return rs, count(n_inv), count(int(n_inv > 0))
+
+
+def charge_round_state(state: RoundState, batch: TxnBatch,
+                       live: torch.Tensor, width: int) -> RoundState:
+    """The accounting of a round-0 refresh at ``width`` without the work:
+    set the live mask and charge the counters :func:`refresh_round_state`
+    (full rung) or :func:`refresh_round_state_compact` (``live.sum() <=
+    width``) would, leaving ``res`` and the conflict structure, which
+    :func:`seed_round_state` already made equal to a fresh round 0."""
+    length = batch.opcodes.shape[1]
+    return dataclasses.replace(
+        state, live=live,
+        live_txns=state.live_txns + live.sum(dtype=_I32),
+        live_slots=state.live_slots
+        + torch.where(live, batch.n_ins, 0).sum(dtype=_I32),
+        walked_slots=state.walked_slots + width * length)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """PotSession — the streaming execution layer (after
-``repro.core.session``), serial path.
+``repro.core.session``), dense store.
 
 A session owns the store (carried across batches, with ``gv``), the
 sequencer (globally increasing sequence numbers) and its engine
@@ -20,9 +20,26 @@ Usage::
     session.fingerprint()                          # determinism check
     log = session.replay_log()                     # global commit order
 
-Not ported yet (they raise ``NotImplementedError``): cross-batch
-pipelining (``pipeline_depth > 0``), the sharded store (``shards > 1``,
-``mesh``), elastic lanes, ingress serving (``serve``) and snapshots.
+**Deterministic ingress**: ``serve(pool, budget)`` drains an
+:class:`~repro_torch.core.ingress.IngressPool` (host state; it forms
+batches on the CPU from single-transaction arrivals) until it is empty.
+The pool's drain order is the preordered sequence, and the formed
+batches carry their own globally consecutive sequence numbers, so the
+session's sequencer is not consulted.
+
+**Cross-batch speculative pipelining**: with ``pipeline_depth=D >= 1``,
+``run_stream`` and ``serve`` keep a window of up to D batches executed
+speculatively ahead of the committed store: each enqueued batch runs its
+round-0 read phase and conflict analysis against the store as it stands
+(``protocol.spec_execute``), and at its turn the engine re-bases that
+seed onto the committed store (``EngineDef.raw_spec``).  Stores,
+fingerprints, ``replay_log()`` and every trace field but ``spec_*`` equal
+the serial run's.  Every launch stays on the current stream: the
+speculation runs before, not beside, the drains.  ``submit`` flushes the
+window first.
+
+Not ported yet (they raise ``NotImplementedError``): the sharded store
+(``shards > 1``, ``mesh``), elastic lanes and snapshots.
 """
 
 from __future__ import annotations
@@ -33,6 +50,7 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import protocol
 from repro_torch.core.engine import (EngineDef, ExecTrace, get_engine,
                                      not_ported)
 from repro_torch.core.sequencer import ReplaySequencer, RoundRobinSequencer
@@ -74,8 +92,12 @@ class PotSession:
         buckets to powers of two.
       device: where the store lives and the engine runs (``"cuda"`` by
         default; ``"cpu"`` takes the scatter-min formulation).
-      shards, mesh, pipeline_depth, elastic: only their serial, dense
-        defaults are supported.
+      pipeline_depth: speculate up to D batches ahead of the committed
+        store in ``run_stream`` / ``serve`` (module docstring); the
+        outcome is the serial run's for any D.  0 (default), or an
+        engine without ``raw_spec``, is the serial path.
+      shards, mesh, elastic: only their dense, static defaults are
+        supported.
     """
 
     def __init__(self, n_objects: int | None = None, *, slot: int = 1,
@@ -88,8 +110,6 @@ class PotSession:
             raise not_ported("the sharded store (shards > 1, mesh)", 9)
         if pipeline_depth < 0:
             raise ValueError("pipeline_depth must be >= 0")
-        if pipeline_depth > 0:
-            raise not_ported("cross-batch pipelining (pipeline_depth > 0)", 7)
         if elastic is not None:
             raise not_ported("elastic lane management", 10)
         if bucket_ladder not in ("pow2", "dense"):
@@ -114,6 +134,15 @@ class PotSession:
         self.sequencer = sequencer if sequencer is not None \
             else RoundRobinSequencer(n_root_lanes=n_lanes)
         self.bucket = bucket
+        self.pipeline_depth = pipeline_depth
+        # pipelining needs the engine's seeded entry point; without one
+        # the session serves the serial path, with the same outcome
+        self._pipelined = (pipeline_depth > 0
+                           and self.engine.raw_spec is not None)
+        # the speculation window, oldest first: (batch, seq, lane_ids,
+        # seed, k, bk) of each batch enqueued ahead of the store
+        self._window: list[tuple] = []
+        self._batches_formed = 0   # ingress-formed batches executed
         self.traces: list[ExecTrace] = []
         # replay log cache, materialized lazily in replay_log()
         self._log: list[int] = []
@@ -146,6 +175,9 @@ class PotSession:
         keys = list(lanes) if lanes is not None else [0] * k
         if len(keys) != k:
             raise ValueError(f"batch has {k} txns, got {len(keys)} lanes")
+        # submit returns THIS batch's trace, so a speculation window left
+        # pending runs first (run_stream and serve always flush theirs)
+        self._spec_flush()
         seq = np.asarray(self.sequencer.order_for(keys), np.int64)
         return self._submit_seq(batch, seq, self._lane_ids(keys))
 
@@ -187,27 +219,119 @@ class PotSession:
         ranks the rows, ``lane_ids`` are engine-facing lanes."""
         batch, seq, lane_ids, k, bk = self._prepare(batch, seq, lane_ids,
                                                     ladder)
-        as_dev = lambda a: torch.from_numpy(a.astype(np.int32)).to(
-            self.device)
         self.store, trace = self.engine.raw(
-            self.store, batch, as_dev(seq), as_dev(lane_ids), self.n_lanes)
+            self.store, batch, self._as_dev(seq), self._as_dev(lane_ids),
+            self.n_lanes)
         return self._record(trace, k, bk)
+
+    def _as_dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a.astype(np.int32)).to(self.device)
+
+    # ------------------------------------------ cross-batch speculation
+    def _spec_enqueue(self, batch: TxnBatch, seq: np.ndarray,
+                      lane_ids: np.ndarray,
+                      ladder: str | None = None) -> None:
+        """Run one batch's round 0 speculatively against the current store
+        (only read) and append it to the window."""
+        batch, seq, lane_ids, k, bk = self._prepare(batch, seq, lane_ids,
+                                                    ladder)
+        seed = protocol.spec_execute(self.store, batch)
+        self._window.append((batch, seq, lane_ids, seed, k, bk))
+
+    def _spec_drain(self) -> ExecTrace:
+        """Execute the window's oldest batch for real: the engine's seeded
+        step re-bases its speculation onto the current store."""
+        batch, seq, lane_ids, seed, k, bk = self._window.pop(0)
+        self.store, trace = self.engine.raw_spec(
+            self.store, batch, self._as_dev(seq), self._as_dev(lane_ids),
+            self.n_lanes, seed)
+        return self._record(trace, k, bk)
+
+    def _spec_flush(self) -> list[ExecTrace]:
+        """Drain the whole window (stream end, or before a submit)."""
+        out = []
+        while self._window:
+            out.append(self._spec_drain())
+        return out
+
+    def _enqueue_and_drain(self, batch, seq, lane_ids,
+                           ladder: str | None = None) -> list[ExecTrace]:
+        """Enqueue one batch, then drain while the window holds more than
+        ``pipeline_depth``; returns the traces completed (none while the
+        window fills)."""
+        self._spec_enqueue(batch, seq, lane_ids, ladder)
+        out = []
+        while len(self._window) > self.pipeline_depth:
+            out.append(self._spec_drain())
+        return out
+
+    def _serve_formed(self, fb, ladder: str | None = None
+                      ) -> list[ExecTrace]:
+        """Execute one ingress-formed batch (the unit step of ``serve``):
+        bump the formed-batch cursor, then submit at the pool's sequence
+        numbers, through the speculation window when pipelined.  Returns
+        the traces this step completed."""
+        fb_ladder = ladder if ladder is not None else fb.ladder
+        self._batches_formed += 1
+        if self._pipelined:
+            return self._enqueue_and_drain(fb.batch, fb.seq, fb.lanes,
+                                           fb_ladder)
+        return [self._submit_seq(fb.batch, fb.seq, fb.lanes,
+                                 ladder=fb_ladder)]
+
+    def serve(self, pool, budget: int = 64, *,
+              max_batches: int | None = None, ladder: str | None = None,
+              elastic=None) -> list[ExecTrace]:
+        """Drain an :class:`~repro_torch.core.ingress.IngressPool` through
+        the session until it is empty (or ``max_batches`` were formed).
+
+        Each step forms the next batch (``pool.drain(budget)``) and
+        executes it at the pool's sequence numbers; the (K, L) bucket
+        follows the pool's ladder recommendation unless ``ladder`` pins
+        one.  Replicas serving pools fed one arrival journal commit the
+        same stores and ``replay_log()`` for any budget schedules that
+        drain the same prefix, and for any ``pipeline_depth`` (the window
+        is flushed before returning)."""
+        if elastic is not None:
+            raise not_ported("elastic lane management", 10)
+        traces: list[ExecTrace] = []
+        formed = 0
+        while max_batches is None or formed < max_batches:
+            fb = pool.drain(budget)
+            if fb is None:
+                break
+            formed += 1
+            traces.extend(self._serve_formed(fb, ladder=ladder))
+        traces.extend(self._spec_flush())
+        return traces
 
     def run_stream(self, batches: Iterable[TxnBatch],
                    lanes: Sequence[Sequence] | None = None
                    ) -> list[ExecTrace]:
         """Submit a whole (possibly ragged) stream of batches; returns one
-        trace each."""
+        trace each, in submission order.  With ``pipeline_depth=D >= 1``
+        each batch speculates against the store at enqueue time and the
+        window drains once it holds more than D."""
         batches = list(batches)
         lanes_list = list(lanes) if lanes is not None \
             else [None] * len(batches)
         if len(lanes_list) != len(batches):
             raise ValueError(
                 f"{len(batches)} batches but {len(lanes_list)} lane lists")
-        return [self.submit(b, l) for b, l in zip(batches, lanes_list)]
-
-    def serve(self, pool, budget: int = 64, **kwargs):
-        raise not_ported("ingress serving (PotSession.serve)", 8)
+        if not self._pipelined:
+            return [self.submit(b, l) for b, l in zip(batches, lanes_list)]
+        traces: list[ExecTrace] = []
+        for b, l in zip(batches, lanes_list):
+            k = b.n_txns
+            keys = list(l) if l is not None else [0] * k
+            if len(keys) != k:
+                raise ValueError(
+                    f"batch has {k} txns, got {len(keys)} lanes")
+            seq = np.asarray(self.sequencer.order_for(keys), np.int64)
+            traces.extend(self._enqueue_and_drain(b, seq,
+                                                  self._lane_ids(keys)))
+        traces.extend(self._spec_flush())
+        return traces
 
     def snapshot(self, directory: str, **kwargs):
         raise not_ported("session snapshots", 10)
@@ -236,9 +360,20 @@ class PotSession:
         """Global version = sequence number of the last commit."""
         return int(self.store.gv)
 
+    @property
+    def batches_formed(self) -> int:
+        """Ingress-formed batches executed (or enqueued) by this session."""
+        return self._batches_formed
+
     def fingerprint(self) -> int:
         """Order-sensitive hash of the committed store image."""
         return store_fingerprint(self.store)
+
+    def compile_count(self) -> int:
+        """Distinct (K, L) step shapes this session has run: the
+        reference's count of compiled steps.  PyTorch compiles nothing per
+        shape, so here it counts the buckets the kernels saw."""
+        return len(self._bucket_counts)
 
     def bucket_counts(self) -> dict[tuple[int, int], int]:
         """Batches submitted per (K, L) step-shape bucket."""

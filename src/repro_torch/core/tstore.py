@@ -39,6 +39,10 @@ class TStore:
         return self.values.device
 
 
+# the reference's name for the dense layout
+DenseStore = TStore
+
+
 def store_with(store: TStore, values, versions, gv) -> TStore:
     """Rebuild a store around new contents."""
     return dataclasses.replace(store, values=values, versions=versions,

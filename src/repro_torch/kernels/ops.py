@@ -1,7 +1,8 @@
 """Plumbing around the kernels, after ``repro.kernels.ops``: TL2 read-set
 validation (``validate``), the conflict-table updates of the round
 protocol (dense store), the rectangular conflict strips of DeSTM's
-retry waves (``cross_conflicts``), the ordered paged commit of the
+retry waves (``cross_conflicts``), the cross-batch validation of
+pipelined sessions (``spec_read_invalid``), the ordered paged commit of the
 serving path (``kv_cache_commit``) and the fused AdamW commit of the
 training path (``adamw_update`` and its speculative variant).
 
@@ -159,6 +160,54 @@ def cross_conflicts(reader_raddrs: torch.Tensor, reader_rn: torch.Tensor,
                                             n_objects)
     wbits = _val.pack_addr_sets(writer_waddrs, writer_wn, n_objects)
     return _conf.conflict_matrix_bits_pair(rbits, wbits)
+
+
+# --------------------------------------------------------------------------
+# Cross-batch speculative validation
+# --------------------------------------------------------------------------
+#
+# A pipelined session executes batch n+1 against the store as it stood
+# before batch n committed.  Version stamps are globally monotone
+# sequence numbers, so an address was written after the snapshot iff
+# versions[a] > snap_gv.  A speculated row stays valid iff none of its
+# logged READ addresses is dirty (a row's execution is a pure function of
+# the values it reads).  The dirty set packs into one bitset row, and the
+# verdict is any_w(read_bits[k, w] & dirty_words[w]): the function of the
+# validation kernel.
+
+
+def spec_dirty_words(versions: torch.Tensor, snap_gv,
+                     n_objects: int) -> torch.Tensor:
+    """Bit-pack the post-snapshot dirty set: bit ``a % 32`` of word
+    ``a // 32`` is set iff ``versions[a] > snap_gv``.  Returns
+    (ceil(O/32),) int32; a word with bit 31 set is negative, as in
+    ``validate.pack_addr_sets``.  The distinct bits of a word are summed
+    in int32, bit 31 as INT_MIN: no partial sum of distinct bits leaves
+    the int32 range, so no unsigned sum is needed."""
+    w = -(-n_objects // 32)
+    dirty = versions.reshape(-1)[:n_objects] > snap_gv
+    dirty = torch.nn.functional.pad(dirty, (0, w * 32 - n_objects))
+    bits = _val._BITS.to(dirty.device)
+    return torch.where(dirty.reshape(w, 32), bits, 0).sum(
+        dim=1, dtype=torch.int32)
+
+
+def spec_read_invalid(raddrs: torch.Tensor, rn: torch.Tensor,
+                      versions: torch.Tensor, snap_gv,
+                      n_objects: int) -> torch.Tensor:
+    """Cross-batch read-set validation: (K,) bool, True where a row's
+    logged read set hits an address written after the snapshot
+    (``versions > snap_gv``).  On CUDA tensors the read sets and the
+    dirty words are packed and the validation kernel gives the verdict;
+    on CPU ones the reference's dense version gather (same verdicts)."""
+    if not _on_cuda(raddrs):
+        valid = (torch.arange(raddrs.shape[1], device=raddrs.device)[None, :]
+                 < rn[:, None])
+        dirty = versions.reshape(-1)[:n_objects] > snap_gv
+        return (valid & dirty[torch.where(valid, raddrs, 0).long()]).any(1)
+    read_bits = _val.pack_addr_sets(raddrs, rn, n_objects)
+    return _val.validate_bitsets(
+        read_bits, spec_dirty_words(versions, snap_gv, n_objects))
 
 
 def kv_cache_commit(cache, versions, rows, page_idx, row_idx, sn, commit):

@@ -3,7 +3,9 @@ card: bitwise equality on ragged and main-path shapes (the AdamW and
 validation kernels also on unaligned views, AdamW on a leaf of more than
 2^31 bytes), launch counting, a small stream through the card's matrix
 formulation equal to the CPU's scatter-min run for each of the four
-engines, ``ops.validate`` on the card against the CPU, the serving
+engines, ``ops.validate`` on the card against the CPU, the cross-batch
+validation strip on both routes and a pipelined PCC stream against the
+CPU's, the serving
 session on the card against the CPU's, and a Pot train step on the card
 run twice, bitwise.
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
@@ -191,6 +193,81 @@ def test_ops_validate_on_card_equals_cpu(cuda):
     got = ops.validate(ra.to(cuda), rn.to(cuda), wa.to(cuda), 640, 1 << 20)
     exp = ops.validate(ra, rn, wa, 640, 1 << 20)
     assert torch.equal(got.cpu(), exp) and exp.any() and not exp.all()
+
+
+@pytest.mark.parametrize("route", ["validate", "pair"])
+def test_spec_read_invalid_strip_on_card(cuda, route):
+    """The cross-batch validation strip at the main path's shape (K =
+    1024 read sets of 16 slots against the dirty words of 1,048,576
+    objects, W = 32,768), on both routes: the validation kernel, and a
+    (1024, 1) strip of the pair kernel.  Bitwise against the kernel's
+    plain version and against the CPU's dense version gather; the entry
+    point on the card takes the validation kernel."""
+    k, n_obj = 1024, 1 << 20
+    rng = np.random.default_rng(5)
+    raddrs = torch.from_numpy(rng.integers(0, n_obj, (k, 16)).astype(
+        np.int32))
+    rn = torch.from_numpy(rng.integers(0, 17, k).astype(np.int32))
+    versions = rng.integers(0, 600, n_obj).astype(np.int32)
+    versions[31::32] = 700            # every bit-31 address dirty
+    versions = torch.from_numpy(versions)
+    snap = torch.tensor(598, dtype=torch.int32)
+    plain = ops.spec_read_invalid(raddrs, rn, versions, snap, n_obj)
+    assert plain.any() and not plain.all()
+    g = lambda t: t.to(cuda)
+    dwords = ops.spec_dirty_words(g(versions), g(snap), n_obj)
+    assert torch.equal(dwords.cpu(),
+                       ops.spec_dirty_words(versions, snap, n_obj))
+    read_bits = validate.pack_addr_sets(g(raddrs), g(rn), n_obj)
+    if route == "validate":
+        out = validate.validate_bitsets(read_bits, dwords)
+        kernel_plain = ref.validate_bitsets_ref(read_bits, dwords)
+    else:
+        out = conflict.conflict_matrix_bits_pair(read_bits, dwords[None])
+        kernel_plain = ref.conflict_matrix_bits_pair_ref(read_bits,
+                                                         dwords[None])
+        out, kernel_plain = out[:, 0], kernel_plain[:, 0]
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernel_plain)
+    assert torch.equal(out.cpu(), plain)
+    validate.reset_launches()
+    got = ops.spec_read_invalid(g(raddrs), g(rn), g(versions), g(snap),
+                                n_obj)
+    torch.cuda.synchronize()
+    assert validate.LAUNCHES["validate_bitsets"] == 1
+    assert torch.equal(got.cpu(), plain)
+
+
+def test_pipelined_session_on_card_equals_cpu(cuda):
+    """A pipelined PCC stream (depth 2) on the card equals the same
+    stream on the CPU in every trace field, ``spec_*`` included, and the
+    card's serial run in every field but ``spec_*``; the speculation goes
+    through the delta kernel and the validation kernel."""
+    wls = [W.vacation_like(n_txns=k, n_objects=4096, n_lanes=8, seed=s,
+                           update_pct=90, device="cpu")
+           for s, k in enumerate((256, 200, 256))]
+    batches, lanes = [w.batch for w in wls], [w.lanes for w in wls]
+    runs = []
+    for dev, depth in ((cuda, 2), ("cpu", 2), (cuda, 0)):
+        s = PotSession(4096, engine="pcc", n_lanes=8, pipeline_depth=depth,
+                       device=dev)
+        conflict.reset_launches()
+        validate.reset_launches()
+        traces = s.run_stream(batches, lanes)
+        runs.append((s, traces, dict(conflict.LAUNCHES,
+                                     **validate.LAUNCHES)))
+    (g, g_tr, launches), (c, c_tr, _), (serial, s_tr, _) = runs
+    assert min(launches.values()) > 0, launches
+    assert sum(int(t.spec_executed) for t in g_tr) == 712
+    assert g.fingerprint() == c.fingerprint() == serial.fingerprint()
+    assert g.replay_log() == c.replay_log() == serial.replay_log()
+    for gt, ct, st in zip(g_tr, c_tr, s_tr):
+        gt, ct = convert.trace_to_numpy(gt), convert.trace_to_numpy(ct)
+        st = convert.trace_to_numpy(st)
+        for f in TRACE_FIELDS:
+            np.testing.assert_array_equal(gt[f], ct[f], err_msg=f)
+            if not f.startswith("spec_"):
+                np.testing.assert_array_equal(gt[f], st[f], err_msg=f)
 
 
 @pytest.mark.parametrize("engine", ["occ", "pogl", "destm"])

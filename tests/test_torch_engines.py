@@ -459,11 +459,30 @@ def test_pogl_equals_oracle_and_destm_equals_pogl(k, n_objects, n_lanes,
 
 @pytest.mark.parametrize("shim", [pcc_execute, occ_execute, destm_execute],
                          ids=["pcc", "occ", "destm"])
-def test_seeded_execution_is_not_ported(shim):
+def test_seeded_shims_equal_unseeded(shim):
+    """``seed=`` on each shim, with and without the compact cascade: a
+    speculation made before another batch committed gives the unseeded
+    call's store and every trace field but ``spec_*``."""
+    first = _workload(W, "counters", seed=5, device="cpu")
     wl = _workload(W, "counters", device="cpu")
-    store = make_store(32, device="cpu")
-    seq = torch.from_numpy(_seq(wl))
-    args = (torch.from_numpy(wl.lanes), N_LANES) if shim is destm_execute \
-        else ()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        shim(store, wl.batch, seq, *args, seed=object())
+    store0 = make_store(32, init=_init(32), device="cpu")
+    seed = protocol.spec_execute(store0, wl.batch)
+    store1, _ = get_engine("pcc").execute(store0, first.batch, _seq(first))
+    if shim is occ_execute:
+        order = torch.from_numpy(_arrival(wl.batch.n_txns))
+        args = (order,)
+    else:
+        args = (torch.from_numpy(_seq(wl)),)
+        if shim is destm_execute:
+            args += (torch.from_numpy(wl.lanes.astype(np.int32)), N_LANES)
+    for kw in (dict(), dict(compact=False)):
+        plain_store, plain = shim(store1, wl.batch, *args, **kw)
+        out, trace = shim(store1, wl.batch, *args, seed=seed, **kw)
+        for f in ("values", "versions", "gv"):
+            assert torch.equal(getattr(out, f), getattr(plain_store, f)), f
+        for f in TRACE_FIELDS:
+            if not f.startswith("spec_"):
+                assert torch.equal(getattr(trace, f), getattr(plain, f)), \
+                    (kw, f)
+        assert int(trace.spec_executed) == wl.batch.n_txns
+        assert int(trace.spec_rounds) == 1 and int(trace.spec_invalidated)

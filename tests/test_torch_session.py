@@ -27,6 +27,7 @@ from repro.core.session import PotSession as RefSession
 from repro.core.tstore import make_store as ref_make_store
 from repro_torch import convert
 from repro_torch.core import oracle
+from repro_torch.core.ingress import IngressPool
 from repro_torch.core import workloads as W
 from repro_torch.core.pcc import pcc_execute
 from repro_torch.core.session import PotSession
@@ -198,7 +199,7 @@ def test_pcc_execute_matches_reference(kw, formulation, pcc_reference):
         assert calls["delta"] > 0
 
 
-@pytest.mark.parametrize("kw", [dict(pipeline_depth=1), dict(shards=2),
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(shards=2),
                                 dict(elastic=object())])
 def test_unported_session_arguments_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -213,7 +214,7 @@ def test_unknown_engine_raises():
 
 def test_unported_session_methods_raise():
     s = PotSession(16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        s.serve(None)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        s.serve(IngressPool(), elastic=object())
     with pytest.raises(NotImplementedError):
         s.snapshot("unused")
