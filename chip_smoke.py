@@ -45,12 +45,13 @@ Phases, each printing its own lines:
    by one to an ``IngressPool`` (capacity 4,096, each under its
    workload lane, journal on), then served from its arrival journal
    through ``PotSession(..., engine="pcc", pipeline_depth=D,
-   device="cuda").serve(pool, budget)`` three times: D = 0 and D = 2 at
-   budget 1,024, D = 1 at budget 512.  One fingerprint, replay log and
-   store; the two budget-1,024 runs equal in every trace field but
-   ``spec_*``; the D = 0 store equal to the numpy oracle in the pool's
-   drain order; the pipelined runs speculate every row and launch the
-   delta and validation kernels (counts reset before each run).  Per
+   device="cuda").serve(pool, budget=1024)`` twice, at D = 0 and D = 2
+   (D = 1 at budget 512 was cut to keep the run near 600 s; the CPU
+   tests cover other budgets and depths).  One fingerprint, replay log
+   and store; the two runs equal in every trace field but ``spec_*``;
+   the D = 0 store equal to the numpy oracle in the pool's drain order;
+   the pipelined run speculates every row and launches the delta and
+   validation kernels (counts reset before each run).  Per
    run: seconds, txns/s, rounds and ``spec_*`` per batch, launches, also
    by shape; then the speculation's own steps at the second batch's
    turn (``spec_execute``, the re-base, a fresh round 0), synchronised;
@@ -79,7 +80,9 @@ Phases, each printing its own lines:
    Their times (bare launch into given outputs, and through the
    functional wrapper), the plain version's, one ``torch._fused_adamw_``
    call on the same leaf (a yardstick the port never calls) and the
-   bound (bytes over the memory rate);
+   bound (bytes over the memory rate); at the w1 leaf with g float32
+   also the bare kernel and ``torch._fused_adamw_`` called in turns,
+   25 calls each, each call between its own CUDA events (medians);
 8. training at full width: stablelm-12b cut to 4 layers (widths
    untouched), float32 master weights from a seeded generator on the
    card, ``make_train_step(mode="pot", n_microbatches=2)`` over
@@ -131,12 +134,40 @@ Phases, each printing its own lines:
    txns/s, rounds, ``wave_trips``, ``retry_waves``, ``barrier_ops`` and
    the launches, also by shape (OCC's delta and pair, DeSTM's pair must
    be > 0);
+11. (run after 3b) the sharded store at full width: phase 3's two
+   batches through ``PotSession(..., shards=8, device="cuda")`` (8
+   range shards of 131,072 objects, W_s = 4,096 words): fingerprint,
+   replay log, store and every trace field bitwise equal to phase 3's
+   dense run, every conflict kernel launched, launches by (M, N, W_s),
+   seconds a batch against phase 3's; then each kernel at W_s against
+   its plain version, per shard, and the OR of the 8 shard outputs
+   against the dense kernel at W = 32,768 on the same batch: the pair
+   kernel's (256, 1024) and (1024, 256) strips, the delta kernel at the
+   median live count of the sharded run's full-rung rounds, the
+   validation kernel on (1024, 4,096) (phase 2e's dirty set); one
+   shard's time, the 8 launches', the dense call's, the plain version's
+   and the bound; then one pipelined sharded drain (depth 2, budget
+   1,024) of two batches of phase 3b's journal, equal to phase 3b's
+   depth-0 serve in every trace field but ``spec_*`` and in the replay
+   log, with the validation kernel launched per shard;
+12. (run after 11) recovery on the card: ``run_replica`` over phase 3b's
+   arrival journal (budget 1,024, PCC, a snapshot after every batch)
+   killed by ``FaultPlan(kill_batch=2, kill_phase="execute",
+   action="raise")`` and resumed (``resume=True``): store, replay log and
+   trace digests bitwise equal to phase 3b's depth-0 serve; the ms to
+   write and to verify-load one snapshot of the 1,048,576-object store
+   and the s to resume and re-drain; phase 11's store snapshotted at 8
+   shards and restored at 1 and 4 (one fingerprint); and a replica
+   process (``python -m repro_torch.core.checkpoint``) over the journal's
+   first 512 arrivals at budget 256, SIGKILLed at batch 1 and restored
+   by another process, bitwise equal to the uninterrupted run;
 10b. (run last) each engine pipelined: ``run_stream`` at
    ``pipeline_depth=2`` over the first 256 rows of the stream's first
    three batches on the card, equal to the same engine's serial run on the card
    in every trace field but ``spec_*`` and to its pipelined run on the CPU
-   in every field; per engine the times of the card's runs in turns
-   (serial, pipelined, serial), ``spec_*`` per batch and the launches.
+   in every field; per engine the times of the card's two runs (the
+   repeated serial run was cut to keep the run near 600 s), ``spec_*``
+   per batch and the launches.
 
 The second line from the end is the kernels' JSON summary and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -149,6 +180,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -186,6 +218,10 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 128, 8, 2  # the launcher's defaults
 TRAIN_STEPS = 4
 TRAIN_LR, TRAIN_WD = 3e-4, 0.01
 HELD_TRAIN_STEPS = 3
+ADAMW_TURNS = 25        # phase 2c: the w1 leaf's kernel and library in turns
+
+SHARDS = 8              # phase 11: the main path's store in 8 range shards
+KILL_CUT = 256          # phase 12's SIGKILL run: the budget, 2 batches of it
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 x
@@ -229,6 +265,26 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def in_turns(fns, calls: int, warmup: int = 2) -> list[list[float]]:
+    """Each of ``fns`` called ``calls`` times in turns (a, b, a, b, ...),
+    every call between its own pair of CUDA events: the ms of each call,
+    one list per function."""
+    import torch
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    events = [[(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(calls)]
+              for _ in fns]
+    for i in range(calls):
+        for fn, ev in zip(fns, events):
+            ev[i][0].record()
+            fn()
+            ev[i][1].record()
+    torch.cuda.synchronize()
+    return [[a.elapsed_time(b) for a, b in ev] for ev in events]
 
 
 def bound(ops: float, nbytes: float,
@@ -505,7 +561,7 @@ def phase_main_path(wls):
     log(f"  by shape: {shape_counts()}")
     for name, n in launches.items():
         assert n > 0, f"{name} was never launched on the main path"
-    return session, traces, launches
+    return session, traces, launches, seconds
 
 
 def phase_held_to_account(wls, gpu_session, gpu_traces):
@@ -593,14 +649,15 @@ def phase_round_breakdown(wl):
 
 def phase_pipelined_serving(wls):
     """Phase 3b: the stream's 4,096 transactions admitted one by one to an
-    ingress pool, then served from its arrival journal three times on
-    the card: depth 0 and depth 2 at budget K, depth 1 at budget K / 2.
+    ingress pool, then served from its arrival journal twice on the card:
+    depth 0 and depth 2 at budget K.
     Held to one another, to the numpy oracle in the pool's drain order,
     and measured: the speculation's own steps timed on a stale store."""
     import torch
     from repro_torch import convert
     from repro_torch.core import oracle, protocol
     from repro_torch.core.engine import TRACE_FIELDS
+    from repro_torch.core.checkpoint import trace_digest
     from repro_torch.core.ingress import IngressPool, programs_from_batch
     from repro_torch.core.session import PotSession
     from repro_torch.core.tstore import make_store
@@ -619,7 +676,7 @@ def phase_pipelined_serving(wls):
     assert sum(fb.n_txns for fb in formed) == n_txns
 
     runs = {}
-    for depth, budget in ((0, K), (2, K), (1, K // 2)):
+    for depth, budget in ((0, K), (2, K)):
         s = PotSession(N_OBJECTS, engine="pcc", n_lanes=N_LANES,
                        pipeline_depth=depth, device="cuda")
         served = IngressPool.replay(journal)[0]
@@ -645,13 +702,12 @@ def phase_pipelined_serving(wls):
             for name in ("conflict_matrix_bits_delta", "validate_bitsets"):
                 assert launches[name] > 0, f"{name} not launched"
 
-    (s0, t0_, *_), (s2, t2, *_), (s1, _, *_) = runs.values()
+    (s0, t0_, *_), (s2, t2, *_) = runs.values()
     fp = s0.fingerprint()
-    for s in (s2, s1):
-        assert s.fingerprint() == fp, "served fingerprints differ"
-        assert s.replay_log() == s0.replay_log(), "replay logs differ"
-        for f in ("values", "versions", "gv"):
-            assert torch.equal(getattr(s.store, f), getattr(s0.store, f)), f
+    assert s2.fingerprint() == fp, "served fingerprints differ"
+    assert s2.replay_log() == s0.replay_log(), "replay logs differ"
+    for f in ("values", "versions", "gv"):
+        assert torch.equal(getattr(s2.store, f), getattr(s0.store, f)), f
     for i, (a, b) in enumerate(zip(t0_, t2)):
         a, b = convert.trace_to_numpy(a), convert.trace_to_numpy(b)
         for f in TRACE_FIELDS:
@@ -687,14 +743,19 @@ def phase_pipelined_serving(wls):
     log(f"pipelined serving: {n_txns} vacation-high txns admitted one by "
         f"one ({t_admit:.1f} s with the drain that checks them), served "
         f"from the arrival journal at K={K} and O={N_OBJECTS}: depth 0 "
-        f"{runs[0, K][2]:.3f} s, depth 2 {runs[2, K][2]:.3f} s, depth 1 at "
-        f"budget {K // 2} {runs[1, K // 2][2]:.3f} s; one fingerprint "
+        f"{runs[0, K][2]:.3f} s, depth 2 {runs[2, K][2]:.3f} s; one "
+        f"fingerprint "
         f"{fp:#010x}, replay log and store; depth 0 == depth 2 in every "
         f"trace field but spec_*; store == numpy oracle in the pool's drain "
         f"order (gv {gv}).  Second batch's turn: spec_execute "
         f"{t_spec * 1e3:.1f} ms, re-base {t_rebase * 1e3:.1f} ms "
         f"({int(n_inv)} rows invalid), a fresh round 0 {t_fresh * 1e3:.1f} ms")
-    return runs[2, K][3]
+    # the depth-0 serve, which phases 11 and 12 are held to
+    served = dict(journal=journal, fingerprint=fp,
+                  replay_log=s0.replay_log(), seconds=runs[0, K][2],
+                  traces=[convert.trace_to_numpy(t) for t in t0_],
+                  digests=[trace_digest(t) for t in t0_], **store)
+    return runs[2, K][3], served
 
 
 def phase_validate(wl):
@@ -923,7 +984,7 @@ def phase_engines_pipelined(wls):
     the main path's first three batches through ``run_stream`` at depth
     2 on the card, held to its serial run on the card (every field but
     ``spec_*``) and to the pipelined run on the CPU (every field); the
-    card's runs timed in turns (serial, pipelined, serial)."""
+    card's two runs timed."""
     import torch
     from repro_torch import convert
     from repro_torch.core.engine import TRACE_FIELDS
@@ -935,11 +996,9 @@ def phase_engines_pipelined(wls):
     lanes = [w.lanes[:k] for w in wls[:3]]
     cpu_seconds = 0.0
     for engine in ("pcc", "pogl", "destm", "occ"):
-        # serial and pipelined on the card in turns (serial, pipelined,
-        # serial), then pipelined on the CPU
+        # serial and pipelined on the card, then pipelined on the CPU
         runs = []
-        for device, depth in (("cuda", 0), ("cuda", 2), ("cuda", 0),
-                              ("cpu", 2)):
+        for device, depth in (("cuda", 0), ("cuda", 2), ("cpu", 2)):
             s = PotSession(N_OBJECTS, engine=engine, n_lanes=N_LANES,
                            pipeline_depth=depth, device=device)
             conflict.reset_launches()
@@ -948,7 +1007,7 @@ def phase_engines_pipelined(wls):
             runs.append((s, [convert.trace_to_numpy(t) for t in traces],
                          seconds, dict(conflict.LAUNCHES,
                                        **validate.LAUNCHES)))
-        cpu_seconds += runs[3][2]
+        cpu_seconds += runs[2][2]
         serial, piped = runs[0][1], runs[1][1]
         for s, traces, _, _ in runs[1:]:
             assert s.fingerprint() == runs[0][0].fingerprint(), \
@@ -967,9 +1026,9 @@ def phase_engines_pipelined(wls):
         launches = runs[1][3]
         assert sum(int(t["spec_executed"]) for t in piped) == 3 * k
         assert launches["validate_bitsets"] > 0, engine
-        ms = [r[2] * 1e3 for r in runs[:3]]
-        log(f"  {engine:6s} 3 x {k} txns, in turns: serial {ms[0]:.1f}, "
-            f"pipelined (depth 2) {ms[1]:.1f}, serial {ms[2]:.1f} ms; "
+        ms = [r[2] * 1e3 for r in runs[:2]]
+        log(f"  {engine:6s} 3 x {k} txns: serial {ms[0]:.1f}, pipelined "
+            f"(depth 2) {ms[1]:.1f} ms; "
             f"spec_executed "
             f"{[int(t['spec_executed']) for t in piped]}, spec_invalidated "
             f"{[int(t['spec_invalidated']) for t in piped]}, spec_rounds "
@@ -1394,6 +1453,21 @@ def phase_adamw():
             out[(leaf, gname)] = dict(
                 max_abs_err=err, ms=t, plain_ms=t_plain, bound_ms=bound_ms,
                 bound_by="bytes", library_ms=t_lib, wrapper_ms=t_wrap)
+            if leaf == "w1" and g is g32:
+                kernel_ms, lib_ms = in_turns((
+                    lambda: adamw_bare(entry, (hp, p, m, v, g, *got), n),
+                    lambda: torch._fused_adamw_(
+                        [got[0]], [g32], [got[1]], [got[2]], [], [step7],
+                        lr=TRAIN_LR, beta1=0.9, beta2=0.999,
+                        weight_decay=0.1, eps=1e-8, amsgrad=False,
+                        maximize=False)), ADAMW_TURNS)
+                log(f"  w1 in turns, {ADAMW_TURNS} calls each: kernel "
+                    f"median {np.median(kernel_ms):.4f} ms (min "
+                    f"{min(kernel_ms):.4f}, max {max(kernel_ms):.4f}), "
+                    f"torch._fused_adamw_ median {np.median(lib_ms):.4f} "
+                    f"ms (min {min(lib_ms):.4f}, max {max(lib_ms):.4f}); "
+                    f"kernel / library "
+                    f"{np.median(kernel_ms) / np.median(lib_ms):.3f}")
             del got
         del p, m, v, g32, g
         torch.cuda.empty_cache()
@@ -1685,6 +1759,346 @@ def phase_train_held():
         f"{time.perf_counter() - t0:.1f} s: {lines[0]} | {lines[-2]}")
 
 
+def shard_kernel_line(name, m, n, ws, per_ms, loop_ms, dense_ms, plain_ms,
+                      bnd, extra=""):
+    return (f"  {name} ({m}, {n}) x W_s={ws}: one shard {per_ms:.4f} ms, "
+            f"the {SHARDS} shards' launches {loop_ms:.4f} ms, the dense "
+            f"call at W={SHARDS * ws} {dense_ms:.4f} ms, plain (one shard) "
+            f"{plain_ms:.4f} ms, bound (one shard) {bnd[0]:.4f} ms "
+            f"({bnd[1]}){extra}; every shard bitwise equal to its plain "
+            f"version, their OR to the dense kernel's")
+
+
+def phase_shard_kernels(wls, n_live: int):
+    """The three kernels of the sharded path at the shard-local width
+    W_s = ceil(ceil(O/S)/32): each launch against its plain version,
+    the OR of the S shard outputs against the dense kernel's output at
+    W = ceil(O/32) on the same batch, and their times and bounds; the
+    delta with ``n_live`` rows live."""
+    import torch
+    from repro_torch.core.sequencer import RoundRobinSequencer
+    from repro_torch.core.tstore import StoreLayout, make_store
+    from repro_torch.core.txn import run_all
+    from repro_torch.kernels import conflict, ops, ref, validate
+
+    mma_rate = rate_probe()["bmma"]
+    layout = StoreLayout(N_OBJECTS, SHARDS)
+    ws = layout.words_per_shard
+    batch0, batch1 = (w.batch.to("cuda") for w in wls[:2])
+    store = make_store(N_OBJECTS, device="cuda")
+    res = run_all(batch0, store.values)
+    foot, write = ops.packed_footprints(res.raddrs, res.rn, res.waddrs,
+                                        res.wn, N_OBJECTS)
+    sfoot, swrite = ops.packed_footprints_sharded(
+        res.raddrs, res.rn, res.waddrs, res.wn, layout)
+    assert sfoot.shape == (SHARDS, K, ws)
+    # the pending suffix in the sequence order, as the compact rungs
+    # and a full-rung round see it
+    seq = RoundRobinSequencer(n_root_lanes=N_LANES).order_for(
+        wls[0].lanes.tolist())
+    rank = torch.from_numpy(np.argsort(np.argsort(seq, kind="stable"),
+                                       kind="stable")).to("cuda")
+
+    def check(kernel, plain, shard_args, dense_args):
+        outs = []
+        for args in shard_args:
+            out = kernel(*args)
+            assert torch.equal(out, plain(*args)), \
+                f"{kernel.__name__} != plain version at W_s = {ws}"
+            outs.append(out)
+        ored = outs[0].clone()
+        for out in outs[1:]:
+            ored |= out
+        dense = kernel(*dense_args)
+        assert torch.equal(ored, dense), \
+            f"OR over shards != dense {kernel.__name__}"
+        per = cuda_time_ms(lambda: kernel(*shard_args[0]), 50)
+        loop = cuda_time_ms(lambda: [kernel(*a) for a in shard_args], 20)
+        whole = cuda_time_ms(lambda: kernel(*dense_args), 20)
+        plain_ms = cuda_time_ms(lambda: plain(*shard_args[0]), 2, 1)
+        return per, loop, whole, plain_ms
+
+    out = {}
+    suffix = rank >= K - 256
+    for name, (ri, ci) in (("pair", (suffix, None)),
+                           ("pair", (None, suffix))):
+        pick = lambda t, sel: t if sel is None else t[sel]
+        shard_args = [(pick(sfoot[s], ri), pick(swrite[s], ci))
+                      for s in range(SHARDS)]
+        m, n = shard_args[0][0].shape[0], shard_args[0][1].shape[0]
+        per, loop, whole, plain_ms = check(
+            conflict.conflict_matrix_bits_pair,
+            ref.conflict_matrix_bits_pair_ref, shard_args,
+            (pick(foot, ri), pick(write, ci)))
+        bnd = bound(m * n * ws, (m + n) * ws * 4 + m * n, mma_rate)
+        log(shard_kernel_line(name, m, n, ws, per, loop, whole, plain_ms,
+                              bnd, f", plan "
+                              f"{plan_line(conflict.launch_plan(m, n, ws))}"))
+        out[f"pair ({m}, {n})"] = (per, loop, whole, bnd[0])
+
+    # delta: a full-rung round's live rows, the pending suffix
+    live = rank >= K - n_live
+    rng = np.random.default_rng(SEED)
+    old = torch.from_numpy(rng.random((K, K)) < 0.5).cuda()
+    shard_args = [(sfoot[s], swrite[s], old, live) for s in range(SHARDS)]
+    per, loop, whole, plain_ms = check(
+        conflict.conflict_matrix_bits_delta,
+        ref.conflict_matrix_bits_delta_ref, shard_args,
+        (foot, write, old, live))
+    refresh = int((live[:, None] | live[None, :]).sum())
+    bnd = bound(refresh * ws, 2 * K * ws * 4 + 2 * K * K + K, mma_rate)
+    log(shard_kernel_line("delta", K, K, ws, per, loop, whole, plain_ms,
+                          bnd, f", {n_live} live rows, "
+                          f"{conflict.delta_cuts(K, ws)[n_live][0]} slices"))
+    out["delta"] = (per, loop, whole, bnd[0])
+
+    # validate: batch 1's read sets (its speculation) against the dirty
+    # words of every address batch 0 writes
+    res1 = run_all(batch1, store.values)
+    slots = torch.arange(res.waddrs.shape[1], device="cuda")
+    written = res.waddrs[slots[None, :] < res.wn[:, None]].long()
+    versions = store.versions.clone()
+    versions[written] = 1
+    snap = torch.zeros((), dtype=torch.int32, device="cuda")
+    valid = slots[None, :] < res1.rn[:, None]
+    sread = ops._pack_sharded(res1.raddrs, valid, layout)
+    sversions = torch.nn.functional.pad(
+        versions, (0, layout.padded_objects - N_OBJECTS)).view(SHARDS, -1)
+    sdirty = ops.spec_dirty_words_sharded(sversions, snap, layout)
+    read = validate.pack_addr_sets(res1.raddrs, res1.rn, N_OBJECTS)
+    dirty = ops.spec_dirty_words(versions, snap, N_OBJECTS)
+    per, loop, whole, plain_ms = check(
+        validate.validate_bitsets, ref.validate_bitsets_ref,
+        [(sread[s], sdirty[s]) for s in range(SHARDS)], (read, dirty))
+    assert torch.equal(
+        ops.spec_read_invalid_sharded(res1.raddrs, res1.rn, sversions, snap,
+                                      layout),
+        ops.spec_read_invalid(res1.raddrs, res1.rn, versions, snap,
+                              N_OBJECTS)), "spec_read_invalid sharded"
+    bnd = bound(K * ws, K * ws * 4 + ws * 4 + K)
+    log(shard_kernel_line("validate", K, 1, ws, per, loop, whole, plain_ms,
+                          bnd))
+    out["validate"] = (per, loop, whole, bnd[0])
+    return out
+
+
+def phase_sharded(wls, dense, served):
+    """Phase 11: the main path's store in SHARDS range shards at full
+    width, held bitwise to phase 3's dense run; the kernels at the
+    shard-local width; one pipelined sharded drain of phase 3b's
+    journal, held to phase 3b's depth-0 serve."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.core.engine import TRACE_FIELDS
+    from repro_torch.core.ingress import IngressPool
+    from repro_torch.core.session import PotSession
+    from repro_torch.core.tstore import unshard_store
+    from repro_torch.kernels import conflict, validate
+
+    s = PotSession(N_OBJECTS, engine="pcc", n_lanes=N_LANES, shards=SHARDS,
+                   device="cuda")
+    torch.cuda.synchronize()
+    conflict.reset_launches()
+    validate.reset_launches()
+    traces, seconds = timed(lambda: s.run_stream(
+        [w.batch for w in wls], [w.lanes for w in wls]))
+    launches = dict(conflict.LAUNCHES)
+    shapes = shape_counts()
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched on the sharded path"
+    assert s.fingerprint() == dense["fingerprint"], "sharded fingerprint"
+    assert s.replay_log() == dense["replay_log"], "sharded replay log"
+    for i, (a, b) in enumerate(zip(traces, dense["traces"])):
+        a = convert.trace_to_numpy(a)
+        for f in TRACE_FIELDS:
+            assert np.array_equal(a[f], b[f]), f"sharded batch {i} {f}"
+    flat = unshard_store(s.store)
+    assert np.array_equal(flat.values.cpu().numpy(), dense["values"])
+    assert np.array_equal(flat.versions.cpu().numpy(), dense["versions"])
+    n_txns = len(wls) * K
+    rounds = [int(t.rounds) for t in traces]
+    log(f"sharded store: {n_txns} txns in {len(wls)} batches, O="
+        f"{N_OBJECTS} in {SHARDS} shards of {s.store.shard_size} (W_s = "
+        f"{s.store.layout.words_per_shard} words): {seconds:.3f} s "
+        f"({seconds / len(wls):.3f} s a batch, {n_txns / seconds:.1f} "
+        f"txns/s) against the dense run's {dense['seconds']:.3f} s "
+        f"({dense['seconds'] / len(wls):.3f} s a batch) earlier in this "
+        f"call: {seconds / dense['seconds']:.3f} x; rounds {rounds}; "
+        f"fingerprint, replay log, store and every trace field bitwise "
+        f"equal to the dense run; launches {launches}")
+    log(f"  by shape: {shapes}")
+    # the delta's live count: the median of the full-rung rounds' (every
+    # round whose pending suffix does not fit the widest compact rung)
+    lpr = traces[0].live_counts()
+    kernels = phase_shard_kernels(wls, int(np.median(lpr[lpr > K // 4])))
+    per_round = {name: v[1] - v[2] for name, v in kernels.items()}
+    log(f"  {SHARDS} shard launches minus one dense call, ms: "
+        + ", ".join(f"{k} {v:+.4f}" for k, v in per_round.items()))
+
+    # one pipelined sharded drain: two batches of phase 3b's journal at
+    # depth 2 (the cross-batch validation per shard on the validation
+    # kernel), held to phase 3b's depth-0 serve of the same batches
+    pool = IngressPool.replay(served["journal"])[0]
+    sp = PotSession(N_OBJECTS, engine="pcc", n_lanes=N_LANES, shards=SHARDS,
+                    pipeline_depth=2, device="cuda")
+    torch.cuda.synchronize()
+    conflict.reset_launches()
+    validate.reset_launches()
+    ptraces, pseconds = timed(lambda: sp.serve(pool, budget=K,
+                                               max_batches=2))
+    plaunches = dict(conflict.LAUNCHES, **validate.LAUNCHES)
+    assert len(ptraces) == 2 and sp.n_txns == 2 * K
+    assert plaunches["validate_bitsets"] >= SHARDS, plaunches
+    assert plaunches["conflict_matrix_bits_delta"] > 0, plaunches
+    assert sum(int(t.spec_executed) for t in ptraces) == 2 * K
+    log_ = sp.replay_log()
+    assert log_ == served["replay_log"][:len(log_)] and len(log_) == 2 * K
+    for i, (a, b) in enumerate(zip(ptraces, served["traces"])):
+        a = convert.trace_to_numpy(a)
+        for f in TRACE_FIELDS:
+            if not f.startswith("spec_"):
+                assert np.array_equal(a[f], b[f]), \
+                    f"pipelined sharded batch {i} {f}"
+    log(f"  pipelined sharded drain (depth 2, budget {K}, 2 batches of "
+        f"phase 3b's journal): {pseconds:.3f} s, spec_invalidated "
+        f"{[int(t.spec_invalidated) for t in ptraces]}, launches "
+        f"{plaunches}; equal to phase 3b's depth-0 serve in every trace "
+        f"field but spec_* and in the replay log")
+    log(f"    by shape: {shape_counts()}")
+    return s, plaunches
+
+
+def phase_recovery(served, sharded):
+    """Phase 12: a replica of phase 3b's serve killed and resumed on the
+    card, a snapshot at S shards restored at 1 and 4, and a SIGKILLed
+    replica subprocess restored by another."""
+    import torch
+    from repro_torch.core.checkpoint import (FaultInjected, FaultPlan,
+                                             load_snapshot, run_replica,
+                                             snapshot_ids, trace_digest)
+    from repro_torch.core.session import PotSession
+    from repro_torch.core.tstore import unshard_store
+
+    journal = served["journal"]
+    kw = dict(n_objects=N_OBJECTS, engine="pcc", n_lanes=N_LANES,
+              budgets=(K,), device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        victim = os.path.join(tmp, "victim")
+        plan = FaultPlan(kill_batch=2, kill_phase="execute", action="raise")
+        t0 = time.perf_counter()
+        try:
+            run_replica(journal, directory=victim, snapshot_every=1,
+                        fault_plan=plan, **kw)
+        except FaultInjected as e:
+            t_victim = time.perf_counter() - t0
+            log(f"recovery: the victim died as planned ({e}) after "
+                f"{t_victim:.1f} s, snapshots {snapshot_ids(victim)}")
+        else:
+            raise AssertionError("the fault plan never fired")
+        rec, t_rec = timed(lambda: run_replica(
+            journal, directory=victim, snapshot_every=1, resume=True,
+            record_fingerprints=False, **kw))
+        s = rec.session
+        assert s.restored_from == 1 and s.recovery_batches == 2
+        assert s.fingerprint() == served["fingerprint"]
+        assert s.replay_log() == served["replay_log"]
+        for f in ("values", "versions"):
+            assert np.array_equal(getattr(s.store, f).cpu().numpy(),
+                                  served[f]), f"recovered store {f}"
+        digests = [trace_digest(t) for t in s.traces]
+        assert digests == served["digests"][-len(digests):]
+
+        # one snapshot of the 1,048,576-object store: write, verify-load
+        snaps = os.path.join(tmp, "timed")
+        path, t_write = timed(lambda: s.snapshot(snaps, pool=rec.pool))
+        _, t_load = timed(lambda: load_snapshot(path))
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        log(f"  resumed from snapshot 1 and re-drained {s.recovery_batches} "
+            f"batches in {t_rec:.1f} s; store, replay log and the "
+            f"{len(digests)} trace digests bitwise equal to phase 3b's "
+            f"depth-0 serve; one snapshot ({nbytes} bytes on disk) written "
+            f"in {t_write * 1e3:.1f} ms, verify-loaded in "
+            f"{t_load * 1e3:.1f} ms")
+
+        # a snapshot at S shards restores into S' = 1 and S' = 4
+        at_s = os.path.join(tmp, "resharded")
+        sharded.snapshot(at_s)
+        fp = sharded.fingerprint()
+        for target in (1, 4):
+            r, _ = PotSession.restore(at_s, shards=target, device="cuda")
+            assert r.store.layout.shards == target
+            assert r.fingerprint() == fp, f"restored at S' = {target}"
+            assert torch.equal(unshard_store(r.store).values,
+                               unshard_store(sharded.store).values)
+        log(f"  a snapshot at S = {SHARDS} restored at S' = 1 and S' = 4: "
+            f"fingerprint {fp:#010x} each time")
+
+        # a replica process SIGKILLed at a cut of the journal, restored by
+        # another process; both run on the card
+        cut = journal_cut(journal, 2 * KILL_CUT)
+        ckw = dict(kw, budgets=[KILL_CUT])
+        base = run_replica(cut, directory=os.path.join(tmp, "base"),
+                           snapshot_every=0, **ckw)
+        killed = os.path.join(tmp, "killed")
+        cfg = dict(ckw, journal=cut, directory=killed, snapshot_every=1)
+        (rc, out), t_kill = timed(lambda: replica_process(
+            dict(cfg, fault={"kill_batch": 1, "kill_phase": "execute"}),
+            tmp))
+        assert rc == -signal.SIGKILL and out is None, rc
+        assert snapshot_ids(killed) == [0]
+        (rc, out), t_restart = timed(lambda: replica_process(
+            dict(cfg, resume=True), tmp))
+        assert rc == 0 and out is not None, rc
+        assert out["restored_from"] == 0 and out["pool_depth"] == 0
+        assert out["fingerprint"] == base.session.fingerprint()
+        assert out["replay_log"] == base.session.replay_log()
+        bd = [trace_digest(t) for t in base.session.traces]
+        assert out["trace_digests"] == bd[-len(out["trace_digests"]):]
+        log(f"  SIGKILL: a replica process over the journal's first "
+            f"{2 * KILL_CUT} arrivals at budget {KILL_CUT} killed at batch 1 "
+            f"(exit {-signal.SIGKILL}, {t_kill:.1f} s), restored by another "
+            f"({t_restart:.1f} s): fingerprint, replay log and trace "
+            f"digests bitwise equal to the uninterrupted run")
+    log(f"recovery: resume and re-drain {t_rec:.1f} s; snapshot write "
+        f"{t_write * 1e3:.1f} ms, verify-load {t_load * 1e3:.1f} ms")
+
+
+def journal_cut(journal, n_arrivals: int) -> list:
+    """The arrival journal up to and including its ``n_arrivals``-th
+    admission (config and lane events before it kept)."""
+    from repro_torch.core.ingress import EV_ADMIT
+    seen = 0
+    for i, ev in enumerate(journal):
+        seen += ev[0] == EV_ADMIT
+        if seen == n_arrivals:
+            return list(journal[:i + 1])
+    raise ValueError(f"the journal holds {seen} arrivals")
+
+
+def replica_process(cfg, tmp) -> tuple[int, dict | None]:
+    """``python -m repro_torch.core.checkpoint`` on ``cfg``: (exit code,
+    its summary or None)."""
+    from repro_torch.core.checkpoint import _journal_to_json
+    cfg_path = os.path.join(tmp, "replica.json")
+    out_path = os.path.join(tmp, "replica_out.json")
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    with open(cfg_path, "w") as f:
+        json.dump(dict(cfg, journal=_journal_to_json(cfg["journal"])), f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.core.checkpoint",
+                        cfg_path, out_path], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode not in (0, -signal.SIGKILL):
+        raise RuntimeError(f"replica process exit {r.returncode}: "
+                           f"{r.stderr[-2000:]}")
+    if not os.path.exists(out_path):
+        return r.returncode, None
+    with open(out_path) as f:
+        return r.returncode, json.load(f)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1713,14 +2127,22 @@ def main() -> int:
     kernels.update(adamw)
     kernels["validate_bitsets"], _ = phase_validate(stream[0])
     main_stream = stream[:MAIN_PATH_BATCHES]
-    gpu_session, gpu_traces, launches = phase_main_path(main_stream)
+    gpu_session, gpu_traces, launches, seconds = phase_main_path(main_stream)
     phase_held_to_account(main_stream, gpu_session, gpu_traces)
     phase_round_breakdown(extra)
+    from repro_torch import convert
+    dense = dict(fingerprint=gpu_session.fingerprint(),
+                 replay_log=gpu_session.replay_log(), seconds=seconds,
+                 traces=[convert.trace_to_numpy(t) for t in gpu_traces],
+                 **convert.store_to_numpy(gpu_session.store))
     del gpu_session, gpu_traces
     # the validation kernel's launches on this slice's path: the depth-2
     # serving run's (phase 2d drives it once through ops.validate)
-    launches["validate_bitsets"] = \
-        phase_pipelined_serving(stream)["validate_bitsets"]
+    served_launches, served = phase_pipelined_serving(stream)
+    launches["validate_bitsets"] = served_launches["validate_bitsets"]
+    sharded, _ = phase_sharded(main_stream, dense, served)
+    phase_recovery(served, sharded)
+    del sharded, served, dense
     params, launches["kv_commit"] = phase_serve()
     phase_serve_held(params)
     del params                # the 24 GB of serving weights

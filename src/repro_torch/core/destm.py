@@ -55,7 +55,7 @@ from repro_torch.core import protocol
 from repro_torch.core.engine import (EngineDef, ExecTrace, make_trace,
                                      rank_from_order,
                                      register_engine, seq_rank)
-from repro_torch.core.tstore import TStore, store_with
+from repro_torch.core.tstore import TStore, flat_values, store_with
 from repro_torch.core.txn import TxnBatch, run_live, run_txn
 
 _I32 = torch.int32
@@ -75,7 +75,7 @@ def _destm_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
     """Execute a batch under DeSTM.
 
     Args:
-      store: committed TStore; not modified (the engine works on a copy
+      store: committed store of either layout; not modified (the engine works on a copy
              of its image).
       batch: K transactions on the store's device.  Rows with
              ``n_ins == 0`` are vacant: never round members, never
@@ -100,7 +100,8 @@ def _destm_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
     """
     k = batch.n_txns
     dev = store.device
-    n_obj = store.n_objects
+    layout = store.layout     # dense or S contiguous range shards
+    n_obj = layout.n_objects
     order = torch.argsort(seq, stable=True)
     rank = rank_from_order(order)
     gv0 = int(store.gv)
@@ -146,13 +147,13 @@ def _destm_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
                 cres = rs.res.map(lambda a: a[sel_txn])
             else:
                 rs, cres = protocol.refresh_round_state_gathered(
-                    rs, batch, sel_txn, live)
+                    rs, batch, sel_txn, live, layout)
         else:
             live_t = sel_t if incremental else torch.ones_like(real)
             if seeded0:
                 rs = protocol.charge_round_state(rs, batch, live_t, k)
             else:
-                rs = protocol.refresh_round_state(rs, batch, live_t)
+                rs = protocol.refresh_round_state(rs, batch, live_t, layout)
             cres = rs.res.map(lambda a: a[sel_txn])
         values, versions = rs.values, rs.versions
         sn_c = gv0 + 1 + sel_pos                     # version stamps
@@ -174,7 +175,7 @@ def _destm_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
             f = int(torch.where(bad, lane_slot, n_lanes).min())
             clean = remaining & (lane_slot < f)
             protocol.fused_write_back(values, versions, wa_c, wv_c, wn_c,
-                                      clean, lane_slot, sn_c)
+                                      clean, lane_slot, sn_c, layout)
             protocol.mark_writes(written, wa_c, torch.where(clean, wn_c, 0))
             if f == n_lanes:
                 break   # the rest was clean and has committed
@@ -183,9 +184,10 @@ def _destm_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
                 # token held: the first conflicting member re-executes
                 # against the committed image and commits.  Mark the
                 # RETRY's write set: the speculative one may differ
-                _, _, wa2, wv2, wn2 = run_txn(cbatch.rows(f), values, n_obj)
+                _, _, wa2, wv2, wn2 = run_txn(
+                    cbatch.rows(f), flat_values(values, layout), n_obj)
                 protocol.apply_writes(values, versions, wa2, wv2, wn2,
-                                      int(sn_c[f]))
+                                      int(sn_c[f]), layout)
                 protocol.mark_writes(written, wa2, wn2)
                 retried[f] = True
                 remaining = remaining & (lane_slot > f)
@@ -193,7 +195,8 @@ def _destm_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
             # the wave: every conflicting member re-executes at once
             # against the committed-so-far image (clean prefix included,
             # other wave members' writes not)
-            wres = run_live(cbatch, values, bad, cres, n_obj)
+            wres = run_live(cbatch, flat_values(values, layout), bad, cres,
+                            n_obj)
             # classification agreement: swapping earlier wave members'
             # speculative writes for their re-executed ones must not
             # change a row's verdict
@@ -214,7 +217,7 @@ def _destm_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
             commit2 = later & alive
             protocol.fused_write_back(values, versions, wres.waddrs,
                                       wres.wvals, wres.wn, commit2,
-                                      lane_slot, sn_c)
+                                      lane_slot, sn_c, layout)
             protocol.mark_writes(written, wres.waddrs,
                                  torch.where(commit2, wres.wn, 0))
             retried = retried | (bad & commit2)
@@ -253,7 +256,7 @@ def _destm_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
     else:
         rs = protocol.init_round_state(batch, store.values.clone(),
                                        store.versions.clone(),
-                                       track_conflict=False)
+                                       track_conflict=False, layout=layout)
         spec = {}
     done, rnd = ~real, 0
     while bool((~done).any()) and rnd < limit:

@@ -49,7 +49,7 @@ def _occ_execute(store: TStore, batch: TxnBatch, arrival: torch.Tensor,
     reaches its commit p-th.
 
     Args:
-      store: committed TStore; not modified (the engine works on a copy
+      store: committed store of either layout; not modified (the engine works on a copy
              of its image).
       batch: K transactions on the store's device.  Rows with
              ``n_ins == 0`` are vacant: never pending, never committed,
@@ -75,7 +75,8 @@ def _occ_execute(store: TStore, batch: TxnBatch, arrival: torch.Tensor,
     """
     k = batch.n_txns
     dev = store.device
-    n_obj = store.n_objects
+    layout = store.layout     # dense or S contiguous range shards
+    n_obj = layout.n_objects
     rank = rank_from_order(arrival)
     gv0 = int(store.gv)
     real = batch.n_ins > 0
@@ -99,10 +100,10 @@ def _occ_execute(store: TStore, batch: TxnBatch, arrival: torch.Tensor,
                 # store: charge its accounting without re-walking
                 rs = protocol.charge_round_state(rs, batch, live, width)
             elif full_rung:
-                rs = protocol.refresh_round_state(rs, batch, live)
+                rs = protocol.refresh_round_state(rs, batch, live, layout)
             else:
                 rs = protocol.refresh_round_state_compact(
-                    rs, batch, live, width)[0]
+                    rs, batch, live, width, layout)[0]
             res = rs.res
 
             committing_t, trips = protocol.wave_commit(
@@ -115,7 +116,7 @@ def _occ_execute(store: TStore, batch: TxnBatch, arrival: torch.Tensor,
                                                   0)[rank] - 1).to(_I32)
             values, versions = protocol.fused_write_back(
                 rs.values, rs.versions, res.waddrs, res.wvals, res.wn,
-                committing_t, rank, gv0 + commit_idx_t + 1)
+                committing_t, rank, gv0 + commit_idx_t + 1, layout)
 
             tr["commit_pos"] = torch.maximum(
                 tr["commit_pos"],
@@ -150,7 +151,8 @@ def _occ_execute(store: TStore, batch: TxnBatch, arrival: torch.Tensor,
                     spec_invalidated=spec_inv, spec_rounds=spec_rnds)
     else:
         rs0 = protocol.init_round_state(batch, store.values.clone(),
-                                        store.versions.clone())
+                                        store.versions.clone(),
+                                        layout=layout)
         spec = {}
     ladder = (protocol.compact_ladder(k) if (incremental and compact)
               else [k])

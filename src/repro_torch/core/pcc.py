@@ -35,7 +35,7 @@ from repro_torch.core.engine import (MODE_FAST, MODE_PREFIX, MODE_SPEC,
                                      MODE_UNSET, EngineDef, ExecTrace,
                                      make_trace,
                                      rank_from_order, register_engine)
-from repro_torch.core.tstore import TStore, store_with
+from repro_torch.core.tstore import TStore, flat_values, store_with
 from repro_torch.core.txn import TxnBatch, run_txn
 
 _I32 = torch.int32
@@ -55,7 +55,7 @@ def _pcc_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
     """Execute a batch of preordered transactions under PCC.
 
     Args:
-      store: committed TStore; not modified (the engine works on a copy
+      store: committed store of either layout; not modified (the engine works on a copy
              of its image, updated in place round by round).
       batch: K transactions on the store's device.  Rows with
              ``n_ins == 0`` are vacant: never pending, never committed,
@@ -81,7 +81,8 @@ def _pcc_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
     """
     k = batch.n_txns
     dev = store.device
-    n_obj = store.n_objects
+    layout = store.layout     # dense or S contiguous range shards
+    n_obj = layout.n_objects
     order = torch.argsort(seq, stable=True)  # order[p] = txn at position p
     rank = rank_from_order(order)
     gv0 = int(store.gv)
@@ -113,10 +114,10 @@ def _pcc_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
                 # store: charge its accounting without re-walking
                 rs = protocol.charge_round_state(rs, batch, live, width)
             elif full_rung:
-                rs = protocol.refresh_round_state(rs, batch, live)
+                rs = protocol.refresh_round_state(rs, batch, live, layout)
             else:
                 rs = protocol.refresh_round_state_compact(
-                    rs, batch, live, width)[0]
+                    rs, batch, live, width, layout)[0]
             res = rs.res
 
             # --- carried conflict analysis + prefix decision -------------
@@ -126,7 +127,7 @@ def _pcc_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
             # --- fused write-back: the whole prefix in one scatter -------
             values, versions = protocol.fused_write_back(
                 rs.values, rs.versions, res.waddrs, res.wvals, res.wn,
-                committing_t, rank, seq_nos)
+                committing_t, rank, seq_nos, layout)
             n_new = int(committing_t.sum())
 
             # --- live promotion (§2.2.3): the first non-committing pending
@@ -135,9 +136,10 @@ def _pcc_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
             if live_promotion and n_comm + n_new < n_real:
                 head_pos = n_comm + n_new
                 _, _, waddrs, wvals, wn = run_txn(
-                    batch.rows(order[head_pos]), values, n_obj)
+                    batch.rows(order[head_pos]),
+                    flat_values(values, layout), n_obj)
                 protocol.apply_writes(values, versions, waddrs, wvals, wn,
-                                      gv0 + head_pos + 1)
+                                      gv0 + head_pos + 1, layout)
                 promoted_pos = head_pos
                 n_new += 1
 
@@ -193,7 +195,8 @@ def _pcc_execute(store: TStore, batch: TxnBatch, seq: torch.Tensor,
                     spec_invalidated=spec_inv, spec_rounds=spec_rnds)
     else:
         rs0 = protocol.init_round_state(batch, store.values.clone(),
-                                        store.versions.clone())
+                                        store.versions.clone(),
+                                        layout=layout)
         spec = {}
     ladder = (protocol.compact_ladder(k) if (incremental and compact)
               else [k])

@@ -25,7 +25,7 @@ from repro_torch.core import protocol
 from repro_torch.core.engine import (MODE_FAST, EngineDef, make_trace,
                                      rank_from_order, register_engine)
 from repro_torch.core.txn import TxnResult
-from repro_torch.core.tstore import TStore, store_with
+from repro_torch.core.tstore import TStore, flat_values, store_with
 from repro_torch.core.txn import TxnBatch, run_txn
 
 _I32 = torch.int32
@@ -35,13 +35,14 @@ def _pogl_ordered(store: TStore, batch: TxnBatch,
                   order: torch.Tensor) -> TStore:
     """Walk every row in ``order`` (vacant rows run as no-ops) on a copy
     of the store's image; ``gv`` advances by K."""
+    layout = store.layout
     values, versions = store.values.clone(), store.versions.clone()
     gv0 = int(store.gv)
     for p, t in enumerate(order.tolist()):
-        _, _, waddrs, wvals, wn = run_txn(batch.rows(t), values,
-                                          store.n_objects)
+        _, _, waddrs, wvals, wn = run_txn(
+            batch.rows(t), flat_values(values, layout), layout.n_objects)
         protocol.apply_writes(values, versions, waddrs, wvals, wn,
-                              gv0 + p + 1)
+                              gv0 + p + 1, layout)
     gv = torch.tensor(gv0 + batch.n_txns, dtype=_I32, device=store.device)
     return store_with(store, values, versions, gv)
 
@@ -55,9 +56,10 @@ def _pogl_seeded(store: TStore, batch: TxnBatch, order: torch.Tensor,
     row re-executes against the running image.  ``gv`` advances by K as
     in :func:`_pogl_ordered`.  Returns the store and the number of rows
     re-executed."""
+    layout = store.layout
     values, versions = store.values.clone(), store.versions.clone()
     gv0 = int(store.gv)
-    n_obj = store.n_objects
+    n_obj = layout.n_objects
     written = torch.zeros((n_obj,), dtype=torch.bool, device=store.device)
     slot = torch.arange(batch.max_ins, device=store.device)
     n_rerun = 0
@@ -65,12 +67,13 @@ def _pogl_seeded(store: TStore, batch: TxnBatch, order: torch.Tensor,
         valid = slot < res.rn[t]
         ra = torch.where(valid, res.raddrs[t], 0).long()
         if bool((written[ra] & valid).any()):
-            _, _, waddrs, wvals, wn = run_txn(batch.rows(t), values, n_obj)
+            _, _, waddrs, wvals, wn = run_txn(
+                batch.rows(t), flat_values(values, layout), n_obj)
             n_rerun += 1
         else:
             waddrs, wvals, wn = res.waddrs[t], res.wvals[t], res.wn[t]
         protocol.apply_writes(values, versions, waddrs, wvals, wn,
-                              gv0 + p + 1)
+                              gv0 + p + 1, layout)
         protocol.mark_writes(written, waddrs, wn)
     gv = torch.tensor(gv0 + batch.n_txns, dtype=_I32, device=store.device)
     return store_with(store, values, versions, gv), n_rerun

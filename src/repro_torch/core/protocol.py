@@ -1,5 +1,4 @@
-"""Shared pieces of the round protocol (serial part, dense store), after
-``repro.core.protocol``.
+"""Shared pieces of the round protocol, after ``repro.core.protocol``.
 
 **Round state.**  :class:`RoundState` is what an engine carries from one
 round to the next: the committed image, the cached per-transaction
@@ -32,6 +31,16 @@ the rows whose read set was written since (``versions > snap_gv``), and
 the engine's round 0 charges its ordinary accounting
 (:func:`charge_round_state`) instead of re-walking the batch.
 
+**Shard-partitioned stores.**  Every function takes the store's
+:class:`~repro_torch.core.tstore.StoreLayout`.  Under a sharded layout
+execution reads the flat view of the stacked shards, the conflict
+analysis decomposes per shard into (S, K, ceil(C/32)) packed words
+whose per-shard tables OR into the carried K×K table (the ``*_sharded``
+twins in ``kernel_ops``), and :func:`fused_write_back` splits into S
+independent scatters.  Conflict(t, u) is the OR over shards of per-shard
+conflicts and every decision stays in rank space, so S changes where
+the work happens, never a decision.
+
 **Written-set helpers.**  :func:`footprint_conflicts` and
 :func:`mark_writes` test and grow an (O,) bool set of written objects:
 the validation step of the serial token walk, for many rows at once.
@@ -39,8 +48,10 @@ the validation step of the serial token walk, for many rows at once.
 Formulation.  On CUDA tensors the engines take the matrix formulation
 (``kernel_ops._on_cuda``), so that the hand-written delta kernel carries
 the full rung and the pair kernel the compact rungs.  On CPU tensors
-they take the reference's off-TPU path: scatter-min, no packed bitsets.
-The two give the same decisions.
+they take the reference's off-TPU path: scatter-min, no packed bitsets,
+except under a sharded layout, which takes the matrix formulation on
+the CPU too (through the kernels' plain versions), as the reference
+does.  The two formulations give the same decisions.
 
 The reference's ``lax.while_loop`` rounds are a host loop here; the
 round-state counters stay on the device as int32 tensors.  Write-backs
@@ -54,6 +65,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.tstore import StoreLayout, flat_values
 from repro_torch.core.txn import (TxnBatch, TxnResult, gather_live_indices,
                                   next_pow2, run_compact, run_live,
                                   scatter_result, scatter_rows)
@@ -82,12 +94,18 @@ def dedup_last_writer(waddrs: torch.Tensor, wn) -> torch.Tensor:
     return valid & keep
 
 
-def apply_writes(values, versions, waddrs, wvals, wn, seq_no):
+def apply_writes(values, versions, waddrs, wvals, wn, seq_no,
+                 layout: StoreLayout | None = None):
     """Write back one committing transaction, in place: install its
     deferred values (last write per address) and stamp the objects'
-    versions with its sequence number."""
+    versions with its sequence number.  Under a sharded ``layout``
+    address a lands in shard a // C at offset a % C: the same values and
+    winners as the dense scatter (a transaction's deduplicated writes hit
+    distinct addresses)."""
     keep = dedup_last_writer(waddrs, wn)
     tgt = waddrs[keep].long()
+    if layout is not None and layout.sharded:
+        tgt = (layout.shard_of(tgt), layout.offset_of(tgt))
     values[tgt] = wvals[keep]
     versions[tgt] = seq_no
     return values, versions
@@ -150,15 +168,16 @@ class RoundState:
     """Per-batch execution state carried across an engine's rounds.
 
     ``conflict`` / ``foot_bits`` / ``write_bits`` are carried only in the
-    matrix formulation (CUDA), where the kernels compute the table; they
-    are None under the scatter-min formulation."""
+    matrix formulation (CUDA, or any sharded store), where the kernels
+    compute the table; they are None under the scatter-min
+    formulation."""
 
     values: torch.Tensor        # (O, S) committed store image
     versions: torch.Tensor      # (O,)
     res: TxnResult              # cached speculative executions (K rows)
     conflict: torch.Tensor | None    # (K, K) bool carried table
-    foot_bits: torch.Tensor | None   # (K, W) int32 packed footprints
-    write_bits: torch.Tensor | None  # (K, W) int32 packed write sets
+    foot_bits: torch.Tensor | None   # (K, W) or (S, K, W_s) int32 packed
+    write_bits: torch.Tensor | None  # footprints and write sets
     live: torch.Tensor          # (K,) bool — rows refreshed this round
     live_txns: torch.Tensor     # () int32 — Σ rounds live count
     live_slots: torch.Tensor    # () int32 — Σ rounds live instruction slots
@@ -167,13 +186,20 @@ class RoundState:
 
 def init_round_state(batch: TxnBatch, values: torch.Tensor,
                      versions: torch.Tensor, *,
-                     track_conflict: bool = True) -> RoundState:
+                     track_conflict: bool = True,
+                     layout: StoreLayout | None = None) -> RoundState:
     """A fresh RoundState with empty caches.  The table and the packed
     bitsets are allocated only in the matrix formulation (CUDA, as
-    :func:`conflict_table` decides), and never with
-    ``track_conflict=False`` (DeSTM, which asks its conflict questions on
-    a compact per-round block).  Every row must be refreshed no later
-    than the first round that consumes it."""
+    :func:`conflict_table` decides, or any sharded ``layout``), and never
+    with ``track_conflict=False`` (DeSTM, which asks its conflict
+    questions on a compact per-round block).  Every row must be refreshed
+    no later than the first round that consumes it.
+
+    A sharded store takes the matrix formulation on the CPU too (the
+    kernels' plain versions): ``foot_bits`` / ``write_bits`` are
+    (S, K, W_s) words, each shard's bitset spanning its own range, and
+    ``conflict`` the OR-reduced K×K table the decisions consume."""
+    sharded = layout is not None and layout.sharded
     k, length = batch.opcodes.shape
     slot = values.shape[-1]
     dev = values.device
@@ -182,11 +208,14 @@ def init_round_state(batch: TxnBatch, values: torch.Tensor,
                     waddrs=z((k, length)), wvals=z((k, length, slot)),
                     wn=z((k,)))
     conflict = foot_bits = write_bits = None
-    if track_conflict and _matrix_backend(values):
-        w = -(-values.shape[0] // 32)
+    if track_conflict and (sharded or _matrix_backend(values)):
+        if sharded:
+            shape = (layout.shards, k, layout.words_per_shard)
+        else:
+            shape = (k, -(-values.shape[0] // 32))
         conflict = z((k, k), torch.bool)
-        foot_bits = z((k, w))
-        write_bits = z((k, w))
+        foot_bits = z(shape)
+        write_bits = z(shape)
     return RoundState(
         values=values, versions=versions, res=res, conflict=conflict,
         foot_bits=foot_bits, write_bits=write_bits,
@@ -194,18 +223,32 @@ def init_round_state(batch: TxnBatch, values: torch.Tensor,
         walked_slots=z(()))
 
 
+def _n_objects(values: torch.Tensor, layout: StoreLayout | None) -> int:
+    return layout.n_objects if layout is not None else values.shape[0]
+
+
 def refresh_round_state(state: RoundState, batch: TxnBatch,
-                        live: torch.Tensor) -> RoundState:
+                        live: torch.Tensor,
+                        layout: StoreLayout | None = None) -> RoundState:
     """One round's read phase at the full rung: re-execute the live rows
     against the current image and delta-update the carried table (the
     delta kernel).  Live rows of ``res`` equal a from-scratch
     ``run_all``; table entries with a live row or column equal the
-    from-scratch table; everything else is carried."""
-    n_obj = state.values.shape[0]
-    res = run_live(batch, state.values, live, state.res, n_objects=n_obj)
+    from-scratch table; everything else is carried.  Under a sharded
+    ``layout`` execution reads the flat view of the shards and the delta
+    runs once per shard, OR-reduced."""
+    n_obj = _n_objects(state.values, layout)
+    res = run_live(batch, flat_values(state.values, layout), live,
+                   state.res, n_objects=n_obj)
     conflict, foot_bits, write_bits = (
         state.conflict, state.foot_bits, state.write_bits)
-    if conflict is not None:   # packed bitsets + delta kernel
+    if conflict is not None and layout is not None and layout.sharded:
+        foot_bits, write_bits = kernel_ops.update_packed_footprints_sharded(
+            foot_bits, write_bits, res.raddrs, res.rn, res.waddrs, res.wn,
+            live, layout)
+        conflict = kernel_ops.conflict_matrix_delta_sharded(
+            foot_bits, write_bits, conflict, live)
+    elif conflict is not None:   # packed bitsets + delta kernel
         foot_bits, write_bits = kernel_ops.update_packed_footprints(
             foot_bits, write_bits, res.raddrs, res.rn, res.waddrs, res.wn,
             live, n_obj)
@@ -259,23 +302,33 @@ def run_compact_cascade(ladder: list[int], state, body_at, cond_at):
 
 
 def refresh_round_state_gathered(state: RoundState, batch: TxnBatch,
-                                 idx: torch.Tensor, valid: torch.Tensor
+                                 idx: torch.Tensor, valid: torch.Tensor,
+                                 layout: StoreLayout | None = None
                                  ) -> tuple[RoundState, TxnResult]:
     """One round's read phase over a gathered compact block: execute rows
     ``batch[idx]`` at width C = ``idx.shape[0]`` (``valid`` masks gather
     padding) and scatter the results, the packed-footprint rows and the
-    table's refreshed row and column strips (the pair kernel) back to
-    full-K positions.  Returns ``(state, cres)``."""
+    table's refreshed row and column strips (the pair kernel; once per
+    shard under a sharded ``layout``, OR-reduced) back to full-K
+    positions.  Returns ``(state, cres)``."""
     k, length = batch.opcodes.shape
     width = idx.shape[0]
-    n_obj = state.values.shape[0]
-    cres = run_compact(batch, state.values, idx, valid, n_objects=n_obj)
+    n_obj = _n_objects(state.values, layout)
+    cres = run_compact(batch, flat_values(state.values, layout), idx, valid,
+                       n_objects=n_obj)
     res = scatter_result(state.res, cres, idx, valid)
     live = scatter_rows(torch.zeros((k,), dtype=torch.bool,
                                     device=valid.device), valid, idx, valid)
     conflict, foot_bits, write_bits = (
         state.conflict, state.foot_bits, state.write_bits)
-    if conflict is not None:   # packed strips + pair kernel
+    if conflict is not None and layout is not None and layout.sharded:
+        foot_bits, write_bits = \
+            kernel_ops.update_packed_footprints_compact_sharded(
+                foot_bits, write_bits, cres.raddrs, cres.rn, cres.waddrs,
+                cres.wn, idx, valid, layout)
+        conflict = kernel_ops.conflict_matrix_delta_compact_sharded(
+            foot_bits, write_bits, conflict, idx, valid)
+    elif conflict is not None:   # packed strips + pair kernel
         foot_bits, write_bits = kernel_ops.update_packed_footprints_compact(
             foot_bits, write_bits, cres.raddrs, cres.rn, cres.waddrs,
             cres.wn, idx, valid, n_obj)
@@ -292,7 +345,8 @@ def refresh_round_state_gathered(state: RoundState, batch: TxnBatch,
 
 
 def refresh_round_state_compact(state: RoundState, batch: TxnBatch,
-                                live: torch.Tensor, width: int
+                                live: torch.Tensor, width: int,
+                                layout: StoreLayout | None = None
                                 ) -> tuple[RoundState, TxnResult,
                                            torch.Tensor, torch.Tensor]:
     """One round's read phase at compact width ``width``: gather the live
@@ -300,7 +354,8 @@ def refresh_round_state_compact(state: RoundState, batch: TxnBatch,
     :func:`refresh_round_state_gathered`.  Requires
     ``live.sum() <= width``.  Returns ``(state, cres, idx, valid)``."""
     idx, valid = gather_live_indices(live, width)
-    state, cres = refresh_round_state_gathered(state, batch, idx, valid)
+    state, cres = refresh_round_state_gathered(state, batch, idx, valid,
+                                               layout)
     return state, cres, idx, valid
 
 
@@ -332,8 +387,8 @@ class SpecSeed:
 
     res: TxnResult                    # (K rows) speculative executions
     conflict: torch.Tensor | None     # (K, K) bool speculative table
-    foot_bits: torch.Tensor | None    # (K, W) int32 packed footprints
-    write_bits: torch.Tensor | None   # (K, W) int32 packed write sets
+    foot_bits: torch.Tensor | None    # (K, W) or (S, K, W_s) int32 packed
+    write_bits: torch.Tensor | None   # footprints and write sets
     snap_gv: torch.Tensor             # () int32, store.gv at the snapshot
 
 
@@ -342,22 +397,29 @@ def spec_execute(store, batch: TxnBatch) -> SpecSeed:
     ``store``'s current image (every real row live; the delta kernel in
     the matrix formulation) and capture it as a :class:`SpecSeed`.  The
     store is only read."""
-    rs = init_round_state(batch, store.values, store.versions)
-    rs = refresh_round_state(rs, batch, batch.n_ins > 0)
+    layout = store.layout
+    rs = init_round_state(batch, store.values, store.versions,
+                          layout=layout)
+    rs = refresh_round_state(rs, batch, batch.n_ins > 0, layout)
     return SpecSeed(res=rs.res, conflict=rs.conflict,
                     foot_bits=rs.foot_bits, write_bits=rs.write_bits,
                     snap_gv=store.gv.clone())
 
 
 def speculation_invalid(res: TxnResult, versions: torch.Tensor,
-                        snap_gv: torch.Tensor) -> torch.Tensor:
+                        snap_gv: torch.Tensor,
+                        layout: StoreLayout | None = None) -> torch.Tensor:
     """(K,) bool: rows whose logged read set touches an address written
     after the snapshot (``versions > snap_gv``).  Reads alone decide: a
     row's writes are a function of its reads.  Conservative only where a
     logged read-your-writes read hits a dirty address (a needless
     re-execution, never a wrong accept)."""
+    if layout is not None and layout.sharded:
+        return kernel_ops.spec_read_invalid_sharded(
+            res.raddrs, res.rn, versions, snap_gv, layout)
     return kernel_ops.spec_read_invalid(res.raddrs, res.rn, versions,
-                                        snap_gv, versions.shape[0])
+                                        snap_gv, _n_objects(versions,
+                                                            layout))
 
 
 def seed_round_state(batch: TxnBatch, store, seed: SpecSeed,
@@ -378,23 +440,25 @@ def seed_round_state(batch: TxnBatch, store, seed: SpecSeed,
     tensors, ``spec_rounds`` 1 iff a row re-executed."""
     k = batch.n_txns
     dev = store.device
+    layout = store.layout
     z = lambda shape, dtype=_I32: torch.zeros(shape, dtype=dtype, device=dev)
     rs = RoundState(
         values=store.values.clone(), versions=store.versions.clone(),
         res=seed.res, conflict=seed.conflict, foot_bits=seed.foot_bits,
         write_bits=seed.write_bits, live=z((k,), torch.bool),
         live_txns=z(()), live_slots=z(()), walked_slots=z(()))
-    invalid = speculation_invalid(seed.res, store.versions,
-                                  seed.snap_gv) & (batch.n_ins > 0)
+    invalid = speculation_invalid(seed.res, store.versions, seed.snap_gv,
+                                  layout) & (batch.n_ins > 0)
     n_inv = int(invalid.sum())
     if n_inv:
         ladder = compact_ladder(k) if compact else [k]
         nxt = ladder[1:] + [0]
         width = next(w for w, n in zip(ladder, nxt) if n_inv > n)
         if width >= k:
-            rs = refresh_round_state(rs, batch, invalid)
+            rs = refresh_round_state(rs, batch, invalid, layout)
         else:
-            rs = refresh_round_state_compact(rs, batch, invalid, width)[0]
+            rs = refresh_round_state_compact(rs, batch, invalid, width,
+                                             layout)[0]
         rs = dataclasses.replace(
             rs, live=z((k,), torch.bool), live_txns=z(()),
             live_slots=z(()), walked_slots=z(()))
@@ -520,12 +584,22 @@ def wave_commit(res: TxnResult, conflict: torch.Tensor | None,
 
 
 def fused_write_back(values, versions, waddrs, wvals, wn, committing, rank,
-                     seq_nos):
+                     seq_nos, layout: StoreLayout | None = None):
     """Install a whole round of commits in one scatter, in place.  The
     winning writer per address has the largest (rank, slot) priority:
     later committers overwrite earlier ones and, within a transaction,
     the later deferred write wins.  Priorities are unique, so exactly
-    one slot per address is scattered."""
+    one slot per address is scattered.
+
+    Under a sharded ``layout`` the round splits into S independent
+    scatters, one into each shard's slice (an address lives in exactly
+    one shard, so each shard's winners come from exactly the writes the
+    dense scatter would route there)."""
+    if layout is not None and layout.sharded:
+        for s in range(layout.shards):
+            _shard_write_back(values[s], versions[s], s, waddrs, wvals, wn,
+                              committing, rank, seq_nos, layout.shard_size)
+        return values, versions
     return _shard_write_back(values, versions, 0, waddrs, wvals, wn,
                              committing, rank, seq_nos, values.shape[0])
 

@@ -1,7 +1,8 @@
-"""PotSession — the streaming execution layer (after
-``repro.core.session``), dense store.
+"""PotSession — the streaming execution layer, after
+``repro.core.session``.
 
-A session owns the store (carried across batches, with ``gv``), the
+A session owns the store (carried across batches, with ``gv``; dense or
+cut into ``shards`` contiguous range shards), the
 sequencer (globally increasing sequence numbers) and its engine
 (``"pcc"`` / ``"pot"``, ``"pogl"``, ``"destm"`` or ``"occ"``), all on
 one device.  ``submit`` pads every batch up to its (K, L) shape bucket
@@ -38,8 +39,19 @@ the serial run's.  Every launch stays on the current stream: the
 speculation runs before, not beside, the drains.  ``submit`` flushes the
 window first.
 
-Not ported yet (they raise ``NotImplementedError``): the sharded store
-(``shards > 1``, ``mesh``), elastic lanes and snapshots.
+**Crash-consistent snapshots**: ``snapshot(dir, pool=...)`` and
+``PotSession.restore(dir, arrival_journal=...)`` round-trip the whole
+resumable state (store image, ``gv``, sequencer cursor, counters, bucket
+bookkeeping, replay log, elastic lane manager, ingress journal cursor)
+through :mod:`repro_torch.core.checkpoint`.  Restoring the latest
+snapshot and draining the arrival journal's suffix equals the
+uninterrupted stream bit for bit; the window is flushed into a snapshot,
+never persisted.  ``elastic`` attaches a
+:class:`~repro_torch.runtime.elastic.ElasticLaneManager` whose join and
+leave events apply at formed-batch boundaries.
+
+Not ported (it raises ``NotImplementedError``): ``mesh``, one shard per
+device.
 """
 
 from __future__ import annotations
@@ -54,7 +66,7 @@ from repro_torch.core import protocol
 from repro_torch.core.engine import (EngineDef, ExecTrace, get_engine,
                                      not_ported)
 from repro_torch.core.sequencer import ReplaySequencer, RoundRobinSequencer
-from repro_torch.core.tstore import TStore, make_store
+from repro_torch.core.tstore import TStore, make_store, shard_store
 from repro_torch.core.tstore import fingerprint as store_fingerprint
 from repro_torch.core.txn import TxnBatch, next_pow2, pad_batch
 
@@ -78,7 +90,8 @@ class PotSession:
     Args:
       n_objects: size of a fresh store (ignored if ``store`` is given).
       slot / init: forwarded to :func:`make_store` for the fresh store.
-      store: an existing TStore to adopt (moved to ``device``).
+      store: an existing store of either layout to adopt (moved to
+        ``device``).
       engine: engine name (``"pcc"`` / ``"pogl"`` / ``"destm"`` /
         ``"occ"``; ``"pot"`` aliases ``"pcc"``) or an
         :class:`~repro_torch.core.engine.EngineDef`.
@@ -96,8 +109,16 @@ class PotSession:
         store in ``run_stream`` / ``serve`` (module docstring); the
         outcome is the serial run's for any D.  0 (default), or an
         engine without ``raw_spec``, is the serial path.
-      shards, mesh, elastic: only their dense, static defaults are
-        supported.
+      shards: cut the store into S contiguous range shards
+        (:class:`~repro_torch.core.tstore.ShardedStore`): per-shard
+        conflict analysis and write-back, every decision in global rank
+        space, so fingerprints, traces and ``replay_log()`` equal the
+        dense store's.  Passing it with an already sharded ``store``
+        raises.
+      mesh: one shard per device; not ported (raises).
+      elastic: an optional
+        :class:`~repro_torch.runtime.elastic.ElasticLaneManager`
+        (scaling events at formed-batch boundaries, in ``serve``).
     """
 
     def __init__(self, n_objects: int | None = None, *, slot: int = 1,
@@ -106,12 +127,10 @@ class PotSession:
                  n_lanes: int = 1, bucket: bool = True,
                  bucket_ladder: str = "pow2", shards: int = 1, mesh=None,
                  pipeline_depth: int = 0, elastic=None, device="cuda"):
-        if shards != 1 or mesh is not None:
-            raise not_ported("the sharded store (shards > 1, mesh)", 9)
+        if mesh is not None:
+            raise not_ported("one shard per device (mesh)", 9)
         if pipeline_depth < 0:
             raise ValueError("pipeline_depth must be >= 0")
-        if elastic is not None:
-            raise not_ported("elastic lane management", 10)
         if bucket_ladder not in ("pow2", "dense"):
             raise ValueError(
                 f"bucket_ladder must be 'pow2' or 'dense', "
@@ -121,11 +140,18 @@ class PotSession:
             if n_objects is None:
                 raise ValueError("PotSession needs n_objects or store")
             store = make_store(n_objects, slot=slot, init=init,
-                               device=self.device)
+                               shards=shards, device=self.device)
         else:
-            store = TStore(store.values.to(self.device),
-                           store.versions.to(self.device),
-                           store.gv.to(self.device))
+            if shards > 1 and not isinstance(store, TStore):
+                raise ValueError(
+                    "pass either an already-sharded store OR shards= with "
+                    "a dense store, not both")
+            store = dataclasses.replace(
+                store, values=store.values.to(self.device),
+                versions=store.versions.to(self.device),
+                gv=store.gv.to(self.device))
+            if shards > 1:
+                store = shard_store(store, shards)
         self.bucket_ladder = bucket_ladder
         self.store = store
         self.engine = engine if isinstance(engine, EngineDef) \
@@ -142,7 +168,6 @@ class PotSession:
         # the speculation window, oldest first: (batch, seq, lane_ids,
         # seed, k, bk) of each batch enqueued ahead of the store
         self._window: list[tuple] = []
-        self._batches_formed = 0   # ingress-formed batches executed
         self.traces: list[ExecTrace] = []
         # replay log cache, materialized lazily in replay_log()
         self._log: list[int] = []
@@ -150,6 +175,17 @@ class PotSession:
         self._log_txns = 0         # Σ n_txns of those traces (id offset)
         self._n_txns = 0
         self._bucket_counts: dict[tuple[int, int], int] = {}
+        # the elastic worker pool (or None): snapshot-visible state, so a
+        # restored replica numbers lanes as the uninterrupted one
+        self.elastic = elastic
+        # failover bookkeeping: the formed-batch cursor (where a restored
+        # replica re-enters its budget, snapshot and scaling schedules),
+        # the snapshot chain, and the restore observables of the metrics
+        self._batches_formed = 0
+        self.snapshots_taken = 0
+        self.restored_from = -1       # snapshot id, or -1 (never restored)
+        self._chain_digest = ""       # the last committed snapshot's chain
+        self._next_snapshot_id = 0
 
     # ------------------------------------------------------------- stream
     def _bucket_shape(self, batch: TxnBatch,
@@ -267,17 +303,24 @@ class PotSession:
 
     def _serve_formed(self, fb, ladder: str | None = None
                       ) -> list[ExecTrace]:
-        """Execute one ingress-formed batch (the unit step of ``serve``):
-        bump the formed-batch cursor, then submit at the pool's sequence
-        numbers, through the speculation window when pipelined.  Returns
-        the traces this step completed."""
+        """Execute one ingress-formed batch (the unit step of ``serve`` and
+        of the replica loop in ``repro_torch.core.checkpoint``): advance
+        the elastic lane manager to this formed-batch boundary and map
+        client lanes onto live worker lanes, bump the formed-batch
+        cursor, then submit at the pool's sequence numbers, through the
+        speculation window when pipelined.  Returns the traces this step
+        completed."""
         fb_ladder = ladder if ladder is not None else fb.ladder
+        lanes = fb.lanes
+        if self.elastic is not None:
+            self.elastic.advance_to(self._batches_formed + 1)
+            lanes = np.asarray([self.elastic.worker_for(int(l))
+                                for l in np.asarray(fb.lanes)], np.int64)
         self._batches_formed += 1
         if self._pipelined:
-            return self._enqueue_and_drain(fb.batch, fb.seq, fb.lanes,
+            return self._enqueue_and_drain(fb.batch, fb.seq, lanes,
                                            fb_ladder)
-        return [self._submit_seq(fb.batch, fb.seq, fb.lanes,
-                                 ladder=fb_ladder)]
+        return [self._submit_seq(fb.batch, fb.seq, lanes, ladder=fb_ladder)]
 
     def serve(self, pool, budget: int = 64, *,
               max_batches: int | None = None, ladder: str | None = None,
@@ -291,9 +334,11 @@ class PotSession:
         one.  Replicas serving pools fed one arrival journal commit the
         same stores and ``replay_log()`` for any budget schedules that
         drain the same prefix, and for any ``pipeline_depth`` (the window
-        is flushed before returning)."""
+        is flushed before returning).  ``elastic`` attaches an
+        :class:`~repro_torch.runtime.elastic.ElasticLaneManager` (see
+        ``_serve_formed``)."""
         if elastic is not None:
-            raise not_ported("elastic lane management", 10)
+            self.elastic = elastic
         traces: list[ExecTrace] = []
         formed = 0
         while max_batches is None or formed < max_batches:
@@ -333,12 +378,27 @@ class PotSession:
         traces.extend(self._spec_flush())
         return traces
 
-    def snapshot(self, directory: str, **kwargs):
-        raise not_ported("session snapshots", 10)
+    # --------------------------------------------------- crash recovery
+    def snapshot(self, directory: str, *, pool=None,
+                 _torn_hook=None) -> str:
+        """Commit one crash-consistent snapshot of this session (and the
+        ingress ``pool`` feeding it) under ``directory``, the speculation
+        window flushed first; returns the snapshot's path.  See
+        :func:`repro_torch.core.checkpoint.save_snapshot`."""
+        from repro_torch.core import checkpoint
+        return checkpoint.save_snapshot(self, directory, pool=pool,
+                                        _torn_hook=_torn_hook)
 
     @classmethod
-    def restore(cls, directory: str, **overrides):
-        raise not_ported("session restore", 10)
+    def restore(cls, directory: str, **overrides
+                ) -> "tuple[PotSession, object]":
+        """Rebuild ``(session, pool)`` from the newest complete snapshot
+        under ``directory``, verified before it serves.  Keyword
+        overrides (``step=``, ``arrival_journal=``, ``shards=``,
+        ``engine=``, ``pipeline_depth=``, ``device=``, ...) pass through
+        to :func:`repro_torch.core.checkpoint.restore_session`."""
+        from repro_torch.core import checkpoint
+        return checkpoint.restore_session(directory, **overrides)
 
     def _lane_ids(self, keys) -> np.ndarray:
         """Engine-facing lane array: numeric keys mod n_lanes; symbolic
@@ -362,8 +422,15 @@ class PotSession:
 
     @property
     def batches_formed(self) -> int:
-        """Ingress-formed batches executed (or enqueued) by this session."""
+        """Ingress-formed batches executed (or enqueued) by this session:
+        the cursor a restored replica re-enters its schedules at."""
         return self._batches_formed
+
+    @property
+    def recovery_batches(self) -> int:
+        """Batches executed since restoring from a snapshot (0 for a
+        session that never restored)."""
+        return len(self.traces) if self.restored_from >= 0 else 0
 
     def fingerprint(self) -> int:
         """Order-sensitive hash of the committed store image."""

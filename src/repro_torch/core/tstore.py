@@ -1,15 +1,31 @@
-"""Transactional object store (TStore), dense layout.
+"""Transactional object store (TStore) and its layout, after
+``repro.core.tstore``.
 
-The PyTorch port of the dense half of ``repro.core.tstore``:
+Two layouts of one address space, described by :class:`StoreLayout`:
 
-* ``values``   (O, S) int32 — O objects, each a slot-vector of S words;
-* ``versions`` (O,)   int32 — per-object version = sequence number of the
-  last committed writer (0 = initial state);
-* ``gv``       ()     int32 — global version = sequence number of the
-  last committed transaction.
+* :class:`TStore`, the dense layout (the one-shard case):
 
-The sharded layout is not ported yet; the dense store is the one-shard
-case of the reference's layout abstraction.
+  * ``values``   (O, S) int32 — O objects, each a slot-vector of S words;
+  * ``versions`` (O,)   int32 — per-object version = sequence number of
+    the last committed writer (0 = initial state);
+  * ``gv``       ()     int32 — global version = sequence number of the
+    last committed transaction.
+
+* :class:`ShardedStore`, the address space cut into S contiguous range
+  shards of C = ceil(O/S) objects (object ``a`` lives in shard ``a // C``
+  at offset ``a % C``): ``values`` (S, C, slot), ``versions`` (S, C) and
+  ``gv``.  The last shard may carry padding rows past object O-1; they
+  are never addressed, never written, and left out of the fingerprint.
+
+The global serialization order lives in rank space, while footprints,
+conflict analysis and write-back decompose per address, hence per
+shard: a sharded store gives the dense store's fingerprints, traces and
+replay logs under every engine.  Execution reads the stacked shards as
+one (S·C, slot) image through :func:`flat_values`, a view of the stacked
+tensor, so that a write into a shard is a write into that image.
+
+The reference can place one shard per device (``mesh``); on one card
+that is not ported (ROADMAP queue 1 item 9's residual).
 """
 
 from __future__ import annotations
@@ -18,6 +34,48 @@ import dataclasses
 
 import numpy as np
 import torch
+
+_I32 = torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class StoreLayout:
+    """How the object address space is laid out: ``shards`` contiguous
+    ranges of ``shard_size`` objects; global address ``a`` maps to
+    ``(a // shard_size, a % shard_size)``.  The dense store is the
+    ``shards == 1`` case."""
+
+    n_objects: int
+    shards: int = 1
+
+    @property
+    def shard_size(self) -> int:
+        """Objects per shard C = ceil(O/S); the last shard may pad."""
+        return -(-self.n_objects // self.shards)
+
+    @property
+    def padded_objects(self) -> int:
+        """S * C >= O — the flat length of the stacked shard images."""
+        return self.shards * self.shard_size
+
+    @property
+    def sharded(self) -> bool:
+        """True iff the store's tensors carry the stacked-shard axes
+        (every :class:`ShardedStore` has more than one shard:
+        :func:`shard_store` returns the dense store otherwise)."""
+        return self.shards > 1
+
+    @property
+    def words_per_shard(self) -> int:
+        """Packed-bitset width per shard, ceil(C/32): the conflict
+        kernels' W axis shrinks by S under the sharded layout."""
+        return -(-self.shard_size // 32)
+
+    def shard_of(self, addr: torch.Tensor) -> torch.Tensor:
+        return addr // self.shard_size
+
+    def offset_of(self, addr: torch.Tensor) -> torch.Tensor:
+        return addr % self.shard_size
 
 
 @dataclasses.dataclass
@@ -38,35 +96,134 @@ class TStore:
     def device(self) -> torch.device:
         return self.values.device
 
+    @property
+    def layout(self) -> StoreLayout:
+        return StoreLayout(self.n_objects, 1)
+
 
 # the reference's name for the dense layout
 DenseStore = TStore
 
 
-def store_with(store: TStore, values, versions, gv) -> TStore:
-    """Rebuild a store around new contents."""
+@dataclasses.dataclass
+class ShardedStore:
+    """Range-partitioned store: S stacked shard images (module doc).
+    ``n_objects`` is the real object count, which the padded shapes
+    cannot give back."""
+
+    values: torch.Tensor    # (S, C, slot) int32
+    versions: torch.Tensor  # (S, C)       int32
+    gv: torch.Tensor        # ()           int32
+    n_objects: int
+
+    @property
+    def shards(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def shard_size(self) -> int:
+        return self.values.shape[1]
+
+    @property
+    def slot(self) -> int:
+        return self.values.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @property
+    def layout(self) -> StoreLayout:
+        return StoreLayout(self.n_objects, self.shards)
+
+
+def flat_values(values: torch.Tensor,
+                layout: StoreLayout | None) -> torch.Tensor:
+    """The executor-facing flat (O_pad, slot) image: the dense image
+    itself, or a view of the stacked (S, C, slot) shards (shard s's row c
+    IS global object s·C + c, so no permutation is needed).  Rows past
+    ``layout.n_objects`` are padding, never addressed (every effective
+    address is reduced mod n_objects)."""
+    if layout is None or not layout.sharded:
+        return values
+    s, c, slot = values.shape
+    return values.view(s * c, slot)
+
+
+def store_with(store, values, versions, gv):
+    """Rebuild a store of the same layout around new contents."""
     return dataclasses.replace(store, values=values, versions=versions,
                                gv=gv)
 
 
 def make_store(n_objects: int, slot: int = 1, init=None, *,
-               device="cuda") -> TStore:
+               shards: int = 1, mesh=None, device="cuda"):
     """Create a fresh store on ``device``.  ``init`` is an optional (O, S)
-    initial image."""
+    initial image; ``shards > 1`` returns a :class:`ShardedStore` over
+    that many contiguous address ranges."""
     if init is None:
-        values = torch.zeros((n_objects, slot), dtype=torch.int32,
-                             device=device)
+        values = torch.zeros((n_objects, slot), dtype=_I32, device=device)
     else:
         values = torch.as_tensor(np.asarray(init, np.int32)).reshape(
             n_objects, -1).to(device)
-    return TStore(
+    dense = TStore(
         values=values,
-        versions=torch.zeros((n_objects,), dtype=torch.int32, device=device),
-        gv=torch.zeros((), dtype=torch.int32, device=device))
+        versions=torch.zeros((n_objects,), dtype=_I32, device=device),
+        gv=torch.zeros((), dtype=_I32, device=device))
+    return shard_store(dense, shards, mesh=mesh)
 
 
-def dense_image(store: TStore) -> torch.Tensor:
-    """The (O, slot) committed image."""
+def shard_store(store: TStore, shards: int, mesh=None):
+    """Partition a dense store into ``shards`` contiguous range shards,
+    padding the address space up to S·ceil(O/S) with inert rows.
+    ``shards == 1`` is the dense layout already: the store comes back
+    unchanged."""
+    if mesh is not None:
+        from repro_torch.core.engine import not_ported
+        raise not_ported("one shard per device (mesh)", 9)
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
+    if shards == 1:
+        return store
+    layout = StoreLayout(store.n_objects, shards)
+    pad = layout.padded_objects - store.n_objects
+    values = torch.nn.functional.pad(store.values, (0, 0, 0, pad))
+    versions = torch.nn.functional.pad(store.versions, (0, pad))
+    return ShardedStore(
+        values=values.reshape(shards, layout.shard_size, store.slot),
+        versions=versions.reshape(shards, layout.shard_size),
+        gv=store.gv, n_objects=store.n_objects)
+
+
+def unshard_store(store) -> TStore:
+    """The dense store of a sharded one (padding dropped; the tensors are
+    views of the shards).  A dense store comes back unchanged."""
+    if isinstance(store, TStore):
+        return store
+    o = store.n_objects
+    return TStore(values=store.values.reshape(-1, store.slot)[:o],
+                  versions=store.versions.reshape(-1)[:o], gv=store.gv)
+
+
+def shard_images(store) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Per-shard ``(values, versions)`` images, trimmed to real rows: the
+    snapshot form (``repro_torch.core.checkpoint``), whose concatenation
+    is the dense image, so a snapshot written at S shards restores into
+    any S'.  A dense store yields its one image."""
+    if isinstance(store, TStore):
+        return [(store.values, store.versions)]
+    o, c = store.n_objects, store.shard_size
+    out = []
+    for s in range(store.shards):
+        rows = min(o, (s + 1) * c) - min(o, s * c)
+        out.append((store.values[s, :rows], store.versions[s, :rows]))
+    return out
+
+
+def dense_image(store) -> torch.Tensor:
+    """The (O, slot) committed image of either layout."""
+    if isinstance(store, ShardedStore):
+        return store.values.reshape(-1, store.slot)[:store.n_objects]
     return store.values
 
 
@@ -75,9 +232,11 @@ _FNV_PRIME = 0x01000193
 _MASK32 = 0xFFFFFFFF
 
 
-def fingerprint(store: TStore) -> int:
-    """Order-sensitive 32-bit FNV-1a of the store image (one step per
+def fingerprint(store) -> int:
+    """Order-sensitive 32-bit FNV-1a of the dense image (one step per
     int32 word, row-major), bitwise equal to the reference's.
+    Layout-blind: a sharded store hashes its dense image, padding left
+    out.
 
     Computed on the host in integer arithmetic masked to 32 bits: the
     hash is a sequential chain, and one device launch per word would

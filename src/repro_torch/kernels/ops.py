@@ -1,6 +1,7 @@
 """Plumbing around the kernels, after ``repro.kernels.ops``: TL2 read-set
 validation (``validate``), the conflict-table updates of the round
-protocol (dense store), the rectangular conflict strips of DeSTM's
+protocol (dense store, and their ``*_sharded`` twins, one kernel call a
+shard at the shard-local width), the rectangular conflict strips of DeSTM's
 retry waves (``cross_conflicts``), the cross-batch validation of
 pipelined sessions (``spec_read_invalid``), the ordered paged commit of the
 serving path (``kv_cache_commit``) and the fused AdamW commit of the
@@ -142,6 +143,134 @@ def conflict_matrix_delta(foot_bits: torch.Tensor, write_bits: torch.Tensor,
     return _conf.conflict_matrix_bits_delta(foot_bits, write_bits, old, live)
 
 
+# --------------------------------------------------------------------------
+# Shard-partitioned conflict analysis
+# --------------------------------------------------------------------------
+#
+# Under the sharded layout (tstore.StoreLayout: S contiguous range shards
+# of C = ceil(O/S) objects) each shard packs only the addresses in its
+# range into (K, ceil(C/32)) words, and the global verdict is the OR
+# over shards,
+#
+#     footprint(i) ∩ writes(j) ≠ ∅  ⟺  ∃s: foot_s(i) ∩ writes_s(j) ≠ ∅,
+#
+# because the shards partition the address space.  Each function below
+# is the per-shard twin of a dense one above: one call of a kernel
+# wrapper per shard at W_s = ceil(C/32) words (the kernel on CUDA
+# tensors, its plain version on CPU ones), OR-reduced.  The packed words
+# keep the reference's (S, K, W_s) int32 layout.
+
+
+def _pack_sharded(addrs: torch.Tensor, valid: torch.Tensor,
+                  layout) -> torch.Tensor:
+    """(S, K, W_s) int32: each shard's bit-packing of the valid (K, L)
+    addresses in its range, at shard-local bits.  One packing over
+    S·W_s words, address a at bit offset_of(a) of shard_of(a)'s words,
+    then split into the shards."""
+    span = layout.words_per_shard * 32
+    local = layout.shard_of(addrs) * span + layout.offset_of(addrs)
+    bits = _val.pack_addr_sets_masked(local, valid, layout.shards * span)
+    k = addrs.shape[0]
+    return bits.view(k, layout.shards, -1).transpose(0, 1).contiguous()
+
+
+def packed_footprints_sharded(raddrs, rn, waddrs, wn, layout
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard bit-packing of a batch's (footprint, write-set) address
+    sets: (S, K, W_s) int32 words each."""
+    slot = torch.arange(raddrs.shape[1], device=raddrs.device)[None, :]
+    rb = _pack_sharded(raddrs, slot < rn[:, None], layout)
+    wb = _pack_sharded(waddrs, slot < wn[:, None], layout)
+    return rb | wb, wb
+
+
+def update_packed_footprints_sharded(foot_bits, write_bits, raddrs, rn,
+                                     waddrs, wn, live: torch.Tensor, layout
+                                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sharded twin of :func:`update_packed_footprints`: re-pack the live
+    rows in every shard, keep the settled rows' words."""
+    fresh_foot, fresh_write = packed_footprints_sharded(
+        raddrs, torch.where(live, rn, 0), waddrs, torch.where(live, wn, 0),
+        layout)
+    keep = live[None, :, None]
+    return (torch.where(keep, fresh_foot, foot_bits),
+            torch.where(keep, fresh_write, write_bits))
+
+
+def update_packed_footprints_compact_sharded(foot_bits, write_bits, raddrs,
+                                             rn, waddrs, wn,
+                                             idx: torch.Tensor,
+                                             valid: torch.Tensor, layout
+                                             ) -> tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """Sharded twin of :func:`update_packed_footprints_compact`: pack the
+    gathered block per shard and scatter each shard's rows over the
+    carried (S, K, W_s) words at rows ``idx`` (gather padding masked)."""
+    cfoot, cwrite = packed_footprints_sharded(
+        raddrs, torch.where(valid, rn, 0), waddrs, torch.where(valid, wn, 0),
+        layout)
+    rows = idx[valid]
+
+    def scatter(dst, src):
+        out = dst.clone()
+        out[:, rows] = src[:, valid]
+        return out
+
+    return scatter(foot_bits, cfoot), scatter(write_bits, cwrite)
+
+
+def conflict_matrix_sharded(foot_bits: torch.Tensor,
+                            write_bits: torch.Tensor) -> torch.Tensor:
+    """(K, K) table from per-shard packed sets (S, K, W_s): the OR over
+    shards of each shard's intersection (the pair kernel; on CPU tensors
+    its plain version, the reference's ``_shard_intersects``)."""
+    out = _conf.conflict_matrix_bits_pair(foot_bits[0], write_bits[0])
+    for s in range(1, foot_bits.shape[0]):
+        out |= _conf.conflict_matrix_bits_pair(foot_bits[s], write_bits[s])
+    return out
+
+
+def conflict_matrix_delta_sharded(foot_bits: torch.Tensor,
+                                  write_bits: torch.Tensor,
+                                  old: torch.Tensor,
+                                  live: torch.Tensor) -> torch.Tensor:
+    """Sharded twin of :func:`conflict_matrix_delta`: the delta kernel
+    once per shard against ``old``, OR-reduced.  A stale entry ORs
+    ``old`` with itself; a refreshed one is the OR of the shards'
+    verdicts.  (The kernel REPLACES a refreshed entry, so no shard's
+    output may feed the next one's ``old``.)"""
+    out = _conf.conflict_matrix_bits_delta(foot_bits[0], write_bits[0],
+                                           old, live)
+    for s in range(1, foot_bits.shape[0]):
+        out |= _conf.conflict_matrix_bits_delta(foot_bits[s], write_bits[s],
+                                                old, live)
+    return out
+
+
+def conflict_matrix_delta_compact_sharded(foot_bits: torch.Tensor,
+                                          write_bits: torch.Tensor,
+                                          old: torch.Tensor,
+                                          idx: torch.Tensor,
+                                          valid: torch.Tensor
+                                          ) -> torch.Tensor:
+    """Sharded twin of :func:`conflict_matrix_delta_compact`: the (C, K)
+    row strip and the (K, C) column strip, each the OR over shards of
+    the pair kernel's per-shard strips, scattered over ``old``.
+    ``foot_bits`` / ``write_bits`` (S, K, W_s) must already hold the
+    refreshed live rows."""
+    row_strip = col_strip = None
+    for s in range(foot_bits.shape[0]):
+        fb, wb = foot_bits[s], write_bits[s]
+        r = _conf.conflict_matrix_bits_pair(fb[idx], wb)
+        c = _conf.conflict_matrix_bits_pair(fb, wb[idx])
+        row_strip = r if row_strip is None else row_strip | r
+        col_strip = c if col_strip is None else col_strip | c
+    new = scatter_rows(old, row_strip, idx, valid)
+    # column twin of scatter_rows: gather padding is masked, not scattered
+    new[:, idx[valid]] = col_strip[:, valid]
+    return new
+
+
 def cross_conflicts(reader_raddrs: torch.Tensor, reader_rn: torch.Tensor,
                     reader_waddrs: torch.Tensor, reader_wn: torch.Tensor,
                     writer_waddrs: torch.Tensor, writer_wn: torch.Tensor,
@@ -208,6 +337,37 @@ def spec_read_invalid(raddrs: torch.Tensor, rn: torch.Tensor,
     read_bits = _val.pack_addr_sets(raddrs, rn, n_objects)
     return _val.validate_bitsets(
         read_bits, spec_dirty_words(versions, snap_gv, n_objects))
+
+
+def spec_dirty_words_sharded(versions: torch.Tensor, snap_gv,
+                             layout) -> torch.Tensor:
+    """Per-shard twin of :func:`spec_dirty_words`: shard s's words span
+    only its own range, at shard-local bits.  versions (S, C) ->
+    (S, W_s) int32.  Padding rows are never stamped (version 0), hence
+    never dirty."""
+    w = layout.words_per_shard
+    dirty = torch.nn.functional.pad(versions > snap_gv,
+                                    (0, w * 32 - layout.shard_size))
+    bits = _val._BITS.to(dirty.device)
+    return torch.where(dirty.reshape(layout.shards, w, 32), bits, 0).sum(
+        dim=2, dtype=torch.int32)
+
+
+def spec_read_invalid_sharded(raddrs: torch.Tensor, rn: torch.Tensor,
+                              versions: torch.Tensor, snap_gv,
+                              layout) -> torch.Tensor:
+    """Sharded twin of :func:`spec_read_invalid`: per-shard read bits
+    against per-shard dirty words through the validation kernel (its
+    plain version on CPU tensors), OR-reduced; a dirty read lands in
+    exactly one shard."""
+    valid = (torch.arange(raddrs.shape[1], device=raddrs.device)[None, :]
+             < rn[:, None])
+    read_bits = _pack_sharded(raddrs, valid, layout)
+    dwords = spec_dirty_words_sharded(versions, snap_gv, layout)
+    out = _val.validate_bitsets(read_bits[0], dwords[0])
+    for s in range(1, layout.shards):
+        out |= _val.validate_bitsets(read_bits[s], dwords[s])
+    return out
 
 
 def kv_cache_commit(cache, versions, rows, page_idx, row_idx, sn, commit):

@@ -5,7 +5,9 @@ validation kernels also on unaligned views, AdamW on a leaf of more than
 formulation equal to the CPU's scatter-min run for each of the four
 engines, ``ops.validate`` on the card against the CPU, the cross-batch
 validation strip on both routes and a pipelined PCC stream against the
-CPU's, the serving
+CPU's, the sharded store's kernels at W_s = 4,096 (their OR over shards
+against the dense kernels), sharded sessions and a replica's failover on
+the card, the serving
 session on the card against the CPU's, and a Pot train step on the card
 run twice, bitwise.
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
@@ -69,6 +71,10 @@ def _bits(rng, rows, w, density, device):
     # W below one slice, and W not a multiple of it (nor of 4)
     (70, 65, 1, 0.5), (300, 130, 7, 0.1), (8, 8, 33, 0.05),
     (130, 200, 32767, 1e-3),
+    # the sharded store's strips at the shard-local W_s = 4,096 (8 shards
+    # of 1,048,576 objects)
+    (256, 1024, 4096, 1e-3), (1024, 256, 4096, 1e-3),
+    (1024, 1024, 4096, 1e-3),
 ])
 def test_pair_kernel_equals_plain(cuda, m, n, w, density):
     rng = np.random.default_rng(m + n + w)
@@ -116,6 +122,8 @@ def test_conflict_kernels_on_two_streams(cuda):
     (1024, 32768, 0.5), (1024, 32768, 0.25),
     (1000, 32768, 0.0), (1000, 32768, 1.0), (1000, 32768, "last"),
     (1000, 32767, 0.3),
+    # the sharded store's full rung at W_s = 4,096
+    (1024, 4096, 0.5), (1024, 4096, 0.25),
 ])
 def test_delta_kernel_equals_plain(cuda, k, w, live_frac):
     rng = np.random.default_rng(k + w)
@@ -158,7 +166,7 @@ def test_stream_on_card_equals_cpu(cuda):
 
 
 @pytest.mark.parametrize("k,w", [(1, 1), (8, 128), (1000, 32767),
-                                 (1024, 32768)])
+                                 (1024, 32768), (1024, 4096)])
 def test_validate_kernel_equals_plain(cuda, k, w):
     rng = np.random.default_rng(k + w)
     read = _bits(rng, k, w, 3e-4, cuda)
@@ -296,6 +304,129 @@ def test_engine_stream_on_card_equals_cpu(cuda, engine):
         gt, ct = convert.trace_to_numpy(gt), convert.trace_to_numpy(ct)
         for f in TRACE_FIELDS:
             np.testing.assert_array_equal(gt[f], ct[f], err_msg=f)
+
+
+def test_or_over_shards_equals_dense_kernels(cuda):
+    """At the main path's size (K = 1024, O = 1,048,576) in 8 shards of
+    W_s = 4,096 words: the OR of the per-shard tables, deltas and
+    cross-batch verdicts equals the dense kernels' at W = 32,768, and
+    the sharded twins launch each kernel once per shard."""
+    from repro_torch.core.tstore import StoreLayout
+    from repro_torch.core.txn import run_all
+    k, n_obj, shards = 1024, 1 << 20, 8
+    layout = StoreLayout(n_obj, shards)
+    wl = W.vacation_like(n_txns=k, n_objects=n_obj, n_lanes=8,
+                         update_pct=90, seed=0, device="cpu")
+    res = run_all(wl.batch.to(cuda),
+                  torch.zeros((n_obj, 1), dtype=torch.int32, device=cuda))
+    foot, write = ops.packed_footprints(res.raddrs, res.rn, res.waddrs,
+                                        res.wn, n_obj)
+    sfoot, swrite = ops.packed_footprints_sharded(
+        res.raddrs, res.rn, res.waddrs, res.wn, layout)
+    assert sfoot.shape == (shards, k, 4096)
+    conflict.reset_launches()
+    table = ops.conflict_matrix_sharded(sfoot, swrite)
+    torch.cuda.synchronize()
+    assert conflict.SHAPES[("conflict_matrix_bits_pair", k, k, 4096)] \
+        == shards
+    assert torch.equal(table, conflict.conflict_matrix_bits(foot, write))
+    rng = np.random.default_rng(3)
+    old = torch.from_numpy(rng.random((k, k)) < 0.5).to(cuda)
+    live = torch.from_numpy(rng.random(k) < 0.5).to(cuda)
+    got = ops.conflict_matrix_delta_sharded(sfoot, swrite, old, live)
+    assert torch.equal(got, conflict.conflict_matrix_bits_delta(
+        foot, write, old, live))
+    idx = torch.nonzero(live)[:256, 0]
+    valid = torch.ones_like(idx, dtype=torch.bool)
+    strips = ops.conflict_matrix_delta_compact_sharded(
+        sfoot, swrite, old, idx, valid)
+    assert torch.equal(strips, ops.conflict_matrix_delta_compact(
+        foot, write, old, idx, valid))
+    versions = torch.from_numpy(rng.integers(0, 12, n_obj).astype(
+        np.int32)).to(cuda)
+    sversions = torch.nn.functional.pad(
+        versions, (0, layout.padded_objects - n_obj)).view(shards, -1)
+    validate.reset_launches()
+    inv = ops.spec_read_invalid_sharded(res.raddrs, res.rn, sversions, 10,
+                                        layout)
+    torch.cuda.synchronize()
+    assert validate.LAUNCHES["validate_bitsets"] == shards
+    assert torch.equal(inv, ops.spec_read_invalid(res.raddrs, res.rn,
+                                                  versions, 10, n_obj))
+    assert inv.any() and not inv.all()
+
+
+def test_sharded_session_on_card_equals_dense_and_cpu(cuda):
+    """``PotSession(shards=8)`` on the card: serial and pipelined (depth
+    2) streams equal the card's dense run and the CPU's sharded run in
+    every trace field (``spec_*`` but against the serial run), through
+    every conflict kernel and, pipelined, the validation kernel."""
+    wls = [W.vacation_like(n_txns=k, n_objects=4096, n_lanes=8, seed=s,
+                           update_pct=90, device="cpu")
+           for s, k in enumerate((256, 200, 256))]
+    batches, lanes = [w.batch for w in wls], [w.lanes for w in wls]
+    runs = {}
+    for name, dev, shards, depth in (
+            ("card", cuda, 8, 0), ("card dense", cuda, 1, 0),
+            ("cpu", "cpu", 8, 0), ("card piped", cuda, 8, 2),
+            ("cpu piped", "cpu", 8, 2)):
+        s = PotSession(4096, engine="pcc", n_lanes=8, shards=shards,
+                       pipeline_depth=depth, device=dev)
+        conflict.reset_launches()
+        validate.reset_launches()
+        traces = s.run_stream(batches, lanes)
+        runs[name] = (s, [convert.trace_to_numpy(t) for t in traces],
+                      dict(conflict.LAUNCHES, **validate.LAUNCHES))
+    base, base_tr, _ = runs["card dense"]
+    for name, (s, traces, launches) in runs.items():
+        assert s.fingerprint() == base.fingerprint(), name
+        assert s.replay_log() == base.replay_log(), name
+        for a, b in zip(traces, base_tr):
+            for f in TRACE_FIELDS:
+                if s.pipeline_depth == 0 or not f.startswith("spec_"):
+                    np.testing.assert_array_equal(a[f], b[f],
+                                                  err_msg=f"{name} {f}")
+        if name.startswith("card"):
+            assert launches["conflict_matrix_bits_pair"] > 0, name
+            assert launches["conflict_matrix_bits_delta"] > 0, name
+            assert (launches["validate_bitsets"] > 0) == \
+                (s.pipeline_depth > 0), name
+    piped, cpu_piped = runs["card piped"][1], runs["cpu piped"][1]
+    for a, b in zip(piped, cpu_piped):
+        for f in TRACE_FIELDS:
+            np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+def test_replica_failover_on_card(tmp_path, cuda):
+    """A replica on the card killed mid-stream ("raise") and resumed from
+    its snapshots ends bitwise equal to an uninterrupted one, at 8
+    shards and depth 2."""
+    from repro_torch.core import (FaultInjected, FaultPlan, IngressPool,
+                                  run_replica, trace_digest)
+    from repro_torch.core.ingress import programs_from_batch
+    wl = W.vacation_like(n_txns=600, n_objects=4096, n_lanes=8, seed=4,
+                         update_pct=90, device="cpu")
+    pool = IngressPool(capacity=1024)
+    for p, lane in zip(programs_from_batch(wl.batch), wl.lanes.tolist()):
+        pool.admit(p, lane=int(lane))
+    journal = pool.arrival_journal()
+    kw = dict(n_objects=4096, engine="pcc", n_lanes=8, shards=8,
+              pipeline_depth=2, budgets=(128, 200), device="cuda")
+    base = run_replica(journal, directory=str(tmp_path / "base"),
+                       snapshot_every=0, **kw)
+    with pytest.raises(FaultInjected):
+        run_replica(journal, directory=str(tmp_path / "v"),
+                    snapshot_every=1, fault_plan=FaultPlan(
+                        kill_batch=2, kill_phase="execute", action="raise"),
+                    **kw)
+    rec = run_replica(journal, directory=str(tmp_path / "v"),
+                      snapshot_every=1, resume=True, **kw)
+    assert rec.session.restored_from == 1
+    assert rec.session.fingerprint() == base.session.fingerprint()
+    assert rec.session.replay_log() == base.session.replay_log()
+    bd = [trace_digest(t) for t in base.session.traces]
+    rd = [trace_digest(t) for t in rec.session.traces]
+    assert rd == bd[len(bd) - len(rd):]
 
 
 def _kv_inputs(rng, p, page, h, s, dtype, device):

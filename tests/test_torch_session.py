@@ -202,8 +202,15 @@ def test_pcc_execute_matches_reference(kw, formulation, pcc_reference):
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(shards=2),
                                 dict(elastic=object())])
 def test_unported_session_arguments_raise(kw):
-    with pytest.raises(NotImplementedError):
-        PotSession(16, device="cpu", **kw)
+    """Only ``mesh`` (one shard per device) is left unported: it raises,
+    naming its ROADMAP item; ``shards`` and ``elastic`` are ported."""
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="item 9"):
+            PotSession(16, device="cpu", **kw)
+        return
+    s = PotSession(16, device="cpu", **kw)
+    assert s.store.layout.shards == kw.get("shards", 1)
+    assert s.elastic is kw.get("elastic")
 
 
 def test_unknown_engine_raises():
@@ -212,9 +219,18 @@ def test_unknown_engine_raises():
     assert PotSession(16, engine="pot", device="cpu").engine.name == "pcc"
 
 
-def test_unported_session_methods_raise():
+def test_unported_session_methods_raise(tmp_path):
+    """``serve(elastic=)``, ``snapshot`` and ``restore`` are ported; a
+    restore onto one shard per device (``mesh``) still raises."""
+    from repro_torch.runtime.elastic import ElasticLaneManager
     s = PotSession(16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        s.serve(IngressPool(), elastic=object())
-    with pytest.raises(NotImplementedError):
-        s.snapshot("unused")
+    mgr = ElasticLaneManager(1)
+    assert s.serve(IngressPool(), elastic=mgr) == [] and s.elastic is mgr
+    path = s.snapshot(str(tmp_path), pool=IngressPool())
+    restored, pool = PotSession.restore(str(tmp_path), device="cpu")
+    assert path.endswith("snap_00000000") and pool is not None
+    assert restored.fingerprint() == s.fingerprint()
+    assert restored.restored_from == 0 and s.snapshots_taken == 1
+    with pytest.raises(NotImplementedError, match="item 9"):
+        PotSession.restore(str(tmp_path), mesh=object(), shards=2,
+                           device="cpu")
