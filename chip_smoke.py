@@ -161,6 +161,30 @@ Phases, each printing its own lines:
    process (``python -m repro_torch.core.checkpoint``) over the journal's
    first 512 arrivals at budget 256, SIGKILLed at batch 1 and restored
    by another process, bitwise equal to the uninterrupted run;
+13. (run after 9) the frozen scan oracles (``core/legacy_scan.py``) on
+   the card: PCC, OCC (a seeded arrival) and DeSTM over the first 64
+   rows of phase 3's first batch (O = 1,048,576; the cut is in K only,
+   since the oracle walks one transaction at a time), each bitwise equal
+   to the port's vectorized engine on the card in the store and every
+   trace field ``tests/test_commit_pipeline.py`` compares; the seconds
+   of each;
+14. (run after 13) deterministic data-parallel training at full width:
+   ``make_pot_dp_step`` at one rank (no process group: the ring of one
+   rank is the identity) on phase 8's model, batch and seed, 4 steps
+   twice with AdamW and twice with Adafactor, each pair bitwise equal;
+   the AdamW run bitwise equal to phase 8's pot step (losses and digest)
+   with the fused AdamW kernel launched once per leaf per step; ms per
+   step, tokens/s, the Adafactor update's ms against its bytes bound;
+   and one Adafactor step of one full-width layer on the card against
+   the CPU, within the parity tests' bound;
+15. (run after 14) the fixed ring's order and top-k compression on the
+   card: 8 ranks' contributions of w1's gradient shape (5,120 x 13,824
+   float32) summed in the ring's chunk order in one process
+   (``ordered_ring_sum``), bitwise equal to the CPU and within 1e-5 of
+   the summed magnitudes of ``torch.sum``; ``topk_compress`` at ratio
+   0.01 of that sum bitwise equal to the CPU; the ms of each.  The
+   cross-process ring runs in the CPU tests over gloo; NCCL across cards
+   waits for a machine with several;
 10b. (run last) each engine pipelined: ``run_stream`` at
    ``pipeline_depth=2`` over the first 256 rows of the stream's first
    three batches on the card, equal to the same engine's serial run on the card
@@ -222,6 +246,10 @@ ADAMW_TURNS = 25        # phase 2c: the w1 leaf's kernel and library in turns
 
 SHARDS = 8              # phase 11: the main path's store in 8 range shards
 KILL_CUT = 256          # phase 12's SIGKILL run: the budget, 2 batches of it
+
+SCAN_K = 64             # phase 13: the scan oracle walks K one by one
+RING_RANKS = 8          # phase 15: contributions of 8 ranks at w1's shape
+TOPK_RATIO = 0.01
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 x
@@ -1639,7 +1667,7 @@ def phase_train():
     device_profile(profiled_step, 1, ms, "training step")
     del state
     torch.cuda.empty_cache()
-    return launches
+    return launches, dict(after=a["after"], losses=a["losses"], ms=ms)
 
 
 def train_runs(cfg, params, device, steps, dcfg):
@@ -1757,6 +1785,250 @@ def phase_train_held():
     lines = proc.stdout.strip().splitlines()
     log(f"  launcher on the card, exit 0 in "
         f"{time.perf_counter() - t0:.1f} s: {lines[0]} | {lines[-2]}")
+
+
+def phase_legacy_scan(wl):
+    """Phase 13: the frozen scan oracles on the card, the first SCAN_K
+    rows of the main path's first batch, each bitwise equal to the port's
+    vectorized engine on the card."""
+    import torch
+    from repro_torch.core import legacy_scan
+    from repro_torch.core.destm import destm_execute
+    from repro_torch.core.occ import occ_execute
+    from repro_torch.core.pcc import pcc_execute
+    from repro_torch.core.sequencer import RoundRobinSequencer
+    from repro_torch.core.tstore import make_store
+
+    batch = wl.batch.rows(torch.arange(SCAN_K)).to("cuda")
+    lanes_np = np.asarray(wl.lanes[:SCAN_K], np.int32)
+    seq = torch_tensor(np.asarray(RoundRobinSequencer(
+        n_root_lanes=N_LANES).order_for(lanes_np.tolist()), np.int32), "cuda")
+    lanes = torch_tensor(lanes_np, "cuda")
+    arrival = torch_tensor(np.random.default_rng(SEED).permutation(
+        SCAN_K).astype(np.int32), "cuda")
+    store = make_store(N_OBJECTS, device="cuda")
+    # the store and the trace fields tests/test_commit_pipeline.py compares
+    runs = {
+        "pcc": (lambda: legacy_scan.pcc_execute_scan(store, batch, seq),
+                lambda: pcc_execute(store, batch, seq),
+                ["commit_pos", "mode", "retries", "commit_round",
+                 "first_round", "wait_rounds", "rounds", "exec_ops",
+                 "validation_words", "promotions"]),
+        "occ": (lambda: legacy_scan.occ_execute_scan(store, batch, arrival),
+                lambda: occ_execute(store, batch, arrival),
+                ["commit_pos", "retries", "commit_round", "rounds",
+                 "exec_ops"]),
+        "destm": (lambda: legacy_scan.destm_execute_scan(
+                      store, batch, seq, lanes, N_LANES),
+                  lambda: destm_execute(store, batch, seq, lanes, N_LANES),
+                  ["commit_pos", "retries", "commit_round", "first_round",
+                   "rounds", "exec_ops", "barrier_ops"]),
+    }
+    parts = []
+    for name, (scan, engine, fields) in runs.items():
+        (old, t_old), s_scan = timed(scan)
+        (new, t_new), s_engine = timed(engine)
+        for f in ("values", "versions", "gv"):
+            assert torch.equal(getattr(old, f), getattr(new, f)), \
+                f"{name} scan: store.{f} differs from the engine"
+        for f in fields:
+            assert torch.equal(getattr(t_old, f), getattr(t_new, f)), \
+                f"{name} scan: trace.{f} differs from the engine"
+        parts.append(f"{name} {s_scan:.3f} s ({int(t_old.rounds)} rounds; "
+                     f"engine {s_engine:.3f} s)")
+    log(f"scan oracle on the card (the main path's first batch cut to "
+        f"K={SCAN_K}, O={N_OBJECTS}; the cut is in K only, since the "
+        f"oracle walks one transaction at a time): {', '.join(parts)}; "
+        f"each equal to the vectorized engine in the store and every "
+        f"compared trace field")
+
+
+def update_close(got, exp, before=None) -> float:
+    """The largest share, over a leaf, of the bound |got - exp| <= 1e-7 +
+    1e-5 max(|exp|, |before|) that tests/test_torch_optim.py holds
+    Adafactor to."""
+    import torch
+    got, exp = got.float().cpu(), exp.float().cpu()
+    scale = exp.abs() if before is None else torch.maximum(
+        exp.abs(), before.float().cpu().abs())
+    return float(((got - exp).abs() / (1e-7 + 1e-5 * scale)).max())
+
+
+def phase_dp_train(trained):
+    """Phase 14: ``make_pot_dp_step`` at full width (phase 8's model,
+    batch and seed), one rank: two runs per optimizer bitwise equal,
+    AdamW's bitwise equal to phase 8's pot step, and one Adafactor step
+    of one full-width layer held to the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import fused_adamw
+    from repro_torch.models import lm
+    from repro_torch.optim import adafactor_init, adafactor_update
+    from repro_torch.train import init_state, make_pot_dp_step
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for optimizer in ("adamw", "adafactor"):
+        # phase 8's pot step recomputes each layer in the backward pass
+        step_fn = make_pot_dp_step(cfg, optimizer=optimizer,
+                                   n_microbatches=TRAIN_MICRO, lr=TRAIN_LR,
+                                   wd=TRAIN_WD, remat=True)
+        fused_adamw.reset_launches()
+        runs = []
+        for _ in range(2):
+            state = init_state(lm.init_params(
+                torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                dtype=torch.float32), optimizer, n_slots=len(cfg.pattern))
+            losses, times = [], []
+            for i in range(TRAIN_STEPS):
+                batch = batch_at(dcfg, i, device="cuda")
+                (state, loss), t = timed(lambda: step_fn(state, batch))
+                losses.append(loss)
+                times.append(t)
+            opt = [state.opt["m"], state.opt["v"]] \
+                if optimizer == "adamw" else [state.opt["stats"]]
+            runs.append(dict(losses=torch.stack(losses).cpu(), times=times,
+                             after=tree_digest([state.params, *opt]),
+                             counters=(int(state.gv), int(state.step))))
+            if len(runs) == 1:
+                del state
+                torch.cuda.empty_cache()
+        a, b = runs
+        assert torch.equal(a["losses"], b["losses"]), f"{optimizer}: losses"
+        assert a["after"] == b["after"], f"{optimizer}: runs differ"
+        assert torch.isfinite(a["losses"]).all(), a["losses"]
+        assert a["counters"] == (TRAIN_STEPS, TRAIN_STEPS), a["counters"]
+        launches = fused_adamw.LAUNCHES["fused_adamw"]
+        ms = float(np.median(a["times"] + b["times"])) * 1e3
+        digest = hashlib.sha256(str(a["after"]).encode()).hexdigest()[:16]
+        line = (f"dp train ({optimizer}) {cfg.name} cut to {cfg.n_layers} "
+                f"layers, one rank, {TRAIN_MICRO} microbatches of "
+                f"{TRAIN_BATCH // TRAIN_MICRO} x {TRAIN_SEQ}, {TRAIN_STEPS} "
+                f"steps x 2 runs: median {ms:.3f} ms per step, "
+                f"{tokens / ms * 1e3:.1f} tokens/s; fused_adamw launches "
+                f"{launches}; runs bitwise identical (digest {digest})")
+        if optimizer == "adamw":
+            assert launches == 2 * TRAIN_STEPS * len(leaves(state.params))
+            # the ring of one rank is the identity and x / 1 == x, so the
+            # DP step computes phase 8's pot step's operations
+            same = (a["after"] == trained["after"]
+                    and torch.equal(a["losses"], trained["losses"]))
+            assert same, "the one-rank DP step differs from phase 8"
+            line += (f"; bitwise equal to phase 8's pot step (median "
+                     f"{trained['ms']:.3f} ms there)")
+        else:
+            assert launches == 0, launches
+            # one update on its own, the parameters standing in for grads
+            n_params = sum(t.numel() for t in leaves(state.params))
+            stat_bytes = 8 * sum(t.numel()
+                                 for t in leaves(state.opt["stats"]))
+            t_upd = cuda_time_ms(lambda: adafactor_update(
+                state.params, state.params, state.opt, lr=TRAIN_LR), 3, 1)
+            upd_bound = (12 * n_params + stat_bytes) / HBM_BYTES_PER_S * 1e3
+            line += (f"; the Adafactor update {t_upd:.3f} ms "
+                     f"({t_upd / ms:.3f} of a step) against its bound "
+                     f"{upd_bound:.3f} ms (bytes: p and g read, p written, "
+                     f"{stat_bytes / 1e6:.1f} MB of factored statistics "
+                     f"read and written)")
+        log(line)
+        log(f"  losses: {a['losses'].tolist()}")
+        del state
+        torch.cuda.empty_cache()
+
+    # one Adafactor step of one full-width layer, card against CPU
+    layer = {"layers": [lm.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 1),
+        dataclasses.replace(cfg, n_layers=1),
+        dtype=torch.float32)["layers"][0]]}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                           device="cuda"), layer)
+    card_p, card_s = adafactor_update(layer, grads, adafactor_init(layer),
+                                      lr=TRAIN_LR)
+    cpu = lambda t: tree_map(lambda x: x.cpu(), t)
+    cpu_p, cpu_s = adafactor_update(cpu(layer), cpu(grads),
+                                    adafactor_init(cpu(layer)), lr=TRAIN_LR)
+    worst = max(
+        [update_close(a, b, p) for a, b, p in zip(
+            leaves(card_p), leaves(cpu_p), leaves(cpu(layer)))]
+        + [update_close(a, b) for a, b in zip(leaves(card_s),
+                                              leaves(cpu_s))])
+    assert worst <= 1.0, worst
+    n_layer = sum(t.numel() for t in leaves(layer))
+    log(f"  one Adafactor step of one full-width layer ({n_layer:,} "
+        f"parameters), card against CPU: within rtol 1e-5, atol 1e-7 of "
+        f"the larger of |p| and |p'| (at most {worst:.3f} of that bound)")
+    del layer, grads, card_p, card_s
+    torch.cuda.empty_cache()
+
+
+def phase_ring():
+    """Phase 15: the fixed ring's order and top-k compression on the card,
+    bitwise equal to the CPU.  One card has no second rank, so the ring's
+    sum is taken in one process (``ordered_ring_sum``, the ring's chunk
+    order); the cross-process ring runs only in the CPU tests over gloo,
+    and over NCCL across cards it waits for a machine with several."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.optim import (error_feedback_init, ordered_ring_sum,
+                                   topk_compress)
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = (cfg.d_model, cfg.d_ff)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    stacked = torch.randn((RING_RANKS,) + shape, generator=gen,
+                          device="cuda")
+    stacked.mul_(torch.exp2(torch.randint(-8, 9, stacked.shape,
+                                          generator=gen, device="cuda")))
+    host = stacked.cpu()
+    got = ordered_ring_sum(stacked)
+    t0 = time.perf_counter()
+    exp = ordered_ring_sum(host)
+    cpu_s = time.perf_counter() - t0
+    assert bitwise_equal([got.cpu()], [exp]), "ring order: card != CPU"
+    # within rtol 1e-5 of a plain sum, relative to the summed magnitudes
+    # (a sum of signed terms may cancel to near zero)
+    plain = stacked.sum(0)
+    assert bool(((got - plain).abs()
+                 <= 1e-5 * stacked.abs().sum(0)).all()), "ring vs sum"
+    t_ring = cuda_time_ms(lambda: ordered_ring_sum(stacked), 5)
+    t_sum = cuda_time_ms(lambda: stacked.sum(0), 5)
+    ring_bound = stacked.numel() * 4 * (1 + 1 / RING_RANKS) \
+        / HBM_BYTES_PER_S * 1e3
+    del plain, host
+
+    grads = {"w1": got}
+    resid = error_feedback_init(grads)
+    (sparse, new_r), t_c = timed(lambda: topk_compress(grads, resid,
+                                                       ratio=TOPK_RATIO))
+    cpu_grads = {"w1": exp}
+    t0 = time.perf_counter()
+    cpu_sparse, cpu_r = topk_compress(cpu_grads, error_feedback_init(
+        cpu_grads), ratio=TOPK_RATIO)
+    cpu_c = time.perf_counter() - t0
+    assert bitwise_equal([sparse["w1"].cpu(), new_r["w1"].cpu()],
+                         [cpu_sparse["w1"], cpu_r["w1"]]), \
+        "topk_compress: card != CPU"
+    kept = int((sparse["w1"] != 0).sum())
+    t_topk = cuda_time_ms(lambda: topk_compress(grads, resid,
+                                                ratio=TOPK_RATIO), 3, 1)
+    log(f"ring order on the card: {RING_RANKS} ranks' contributions of w1's "
+        f"gradient {shape} float32 summed in the ring's chunk order "
+        f"(ordered_ring_sum) {t_ring:.3f} ms (torch.sum over the ranks "
+        f"{t_sum:.3f} ms, bound {ring_bound:.3f} ms by bytes; CPU "
+        f"{cpu_s * 1e3:.1f} ms), bitwise equal to the CPU and within 1e-5 "
+        f"of the summed magnitudes of torch.sum; topk_compress at ratio {TOPK_RATIO} "
+        f"{t_topk:.3f} ms (first call {t_c * 1e3:.1f} ms; CPU "
+        f"{cpu_c * 1e3:.1f} ms), {kept:,} of {got.numel():,} kept, bitwise "
+        f"equal to the CPU.  The cross-process ring (ordered_ring_reduce) "
+        f"runs in the CPU tests over gloo; NCCL across cards waits for a "
+        f"machine with several")
+    del stacked, got, exp, sparse, new_r, resid, grads
+    torch.cuda.empty_cache()
 
 
 def shard_kernel_line(name, m, n, ws, per_ms, loop_ms, dense_ms, plain_ms,
@@ -2147,9 +2419,12 @@ def main() -> int:
     phase_serve_held(params)
     del params                # the 24 GB of serving weights
     torch.cuda.empty_cache()
-    launches["fused_adamw"] = phase_train()
+    launches["fused_adamw"], trained = phase_train()
     launches["fused_adamw_speculative"] = spec_launches
     phase_train_held()
+    phase_legacy_scan(stream[0])
+    phase_dp_train(trained)
+    phase_ring()
     phase_engines(stream[0])
     phase_engines_pipelined(stream)
 

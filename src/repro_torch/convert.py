@@ -15,8 +15,9 @@ A cross-batch speculation seed crosses with :func:`seed_from_numpy` /
 both packages can be handed the same seed and the same batches.
 
 The serving path's LM weights cross with :func:`lm_params_from_numpy`,
-the training path's whole state (weights, AdamW moments and counters)
-with :func:`train_state_from_numpy`.
+the training path's whole state (weights, the AdamW moments or the
+Adafactor statistics, and the counters) with
+:func:`train_state_from_numpy`.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from repro_torch.core.txn import TxnBatch, TxnResult
 from repro_torch.models import lm
 from repro_torch.models.blocks import C
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adafactor import adafactor_init
 from repro_torch.train.train_step import TrainState
 from repro_torch.tree import tree_map
 
@@ -166,18 +168,31 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     return out
 
 
+def _tensors_like(like, src, device):
+    """float32 tensors of ``src`` (numpy, nested dicts) in the structure
+    and key order of the port's tree ``like``."""
+    if isinstance(like, dict):
+        return {k: _tensors_like(v, src[k], device) for k, v in like.items()}
+    return torch.from_numpy(np.array(src, np.float32)).to(device)
+
+
 def train_state_from_numpy(tree, cfg: ModelConfig,
                            device="cuda") -> TrainState:
     """The port's ``TrainState`` from the reference's ``TrainState`` (or a
     mapping with its fields) as numpy: parameters and AdamW moments
     unstacked as :func:`lm_params_from_numpy` unstacks them and kept in
-    float32; ``opt["step"]``, ``gv`` and ``step`` as 0-d int32 tensors."""
+    float32; Adafactor's statistics (``opt["stats"]``) kept in their
+    stacked shapes, as the port's Adafactor holds them;
+    ``opt["step"]``, ``gv`` and ``step`` as 0-d int32 tensors."""
     f32 = lambda t: lm_params_from_numpy(t, cfg, device, torch.float32)
     i32 = lambda a: torch.tensor(int(np.asarray(a)), dtype=torch.int32,
                                  device=device)
     opt = _field_tree(tree, "opt")
-    return TrainState(
-        params=f32(_field_tree(tree, "params")),
-        opt={"m": f32(opt["m"]), "v": f32(opt["v"]),
-             "step": i32(opt["step"])},
-        gv=i32(_field(tree, "gv")), step=i32(_field(tree, "step")))
+    params = f32(_field_tree(tree, "params"))
+    if "stats" in opt:
+        like = adafactor_init(params, len(cfg.pattern))["stats"]
+        state = {"stats": _tensors_like(like, opt["stats"], device)}
+    else:
+        state = {"m": f32(opt["m"]), "v": f32(opt["v"])}
+    return TrainState(params=params, opt=dict(state, step=i32(opt["step"])),
+                      gv=i32(_field(tree, "gv")), step=i32(_field(tree, "step")))

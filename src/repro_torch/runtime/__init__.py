@@ -1,1 +1,2 @@
-"""Runtime services of the port: the elastic worker pool."""
+"""Runtime services of the port: the elastic worker pool and the
+straggler model."""

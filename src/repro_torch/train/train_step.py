@@ -14,13 +14,18 @@ step flavours:
   checkpoint restart resumes the same serialization order
   (``ckpt/checkpoint.py``).
 
+``make_pot_dp_step`` is the fully deterministic data-parallel step (the
+end-to-end configuration of ``launch/train_lm.py``): every rank of a
+``torch.distributed`` group takes its slice of the global batch, and the
+gradients cross ranks by the fixed-ring ordered reduction
+(``optim/ordered_reduce.py``), so the trained weights are bitwise the
+same whatever the arrival timing.
+
 Parameters are float32 master weights; the model casts them to bf16 at
 use.  A step returns ``(new_state, loss)`` and leaves the state it was
-given as it was.  The reference's sharding hooks (``prof``,
-``grad_specs``) are identities on one card and are left out; the
-multi-device ``make_pot_dp_step`` (fixed-ring reduction across shards),
-Adafactor and the encoder (whisper) are not ported yet (ROADMAP queue 1
-item 12).
+given as it was.  The optimizer is AdamW or Adafactor.  The reference's
+sharding hooks (``prof``, ``grad_specs``) are identities on one card and
+are left out, as is the encoder (whisper; ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -32,15 +37,10 @@ import torch
 
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim import adamw_init, adamw_update
+from repro_torch.optim import (adafactor_init, adafactor_update, adamw_init,
+                               adamw_update, ordered_ring_reduce)
+from repro_torch.optim.ordered_reduce import ring_position
 from repro_torch.tree import leaves, tree_map, unflatten
-
-
-def _adamw_only(optimizer: str) -> None:
-    if optimizer != "adamw":
-        raise NotImplementedError(
-            f"optimizer {optimizer!r} is not ported yet (ROADMAP queue 1 "
-            f"item 12); the port trains with 'adamw'")
 
 
 @dataclasses.dataclass
@@ -51,9 +51,31 @@ class TrainState:
     step: torch.Tensor   # () int32
 
 
-def init_state(params, optimizer="adamw") -> TrainState:
-    _adamw_only(optimizer)
-    opt = adamw_init(params)
+def _unknown(optimizer) -> ValueError:
+    return ValueError(f"optimizer must be 'adamw' or 'adafactor', got "
+                      f"{optimizer!r}")
+
+
+def _optimizer(optimizer: str, lr, wd):
+    """The update function and its hyperparameters: Adafactor takes the
+    learning rate only, as in the reference."""
+    if optimizer == "adamw":
+        return partial(adamw_update, lr=lr, wd=wd)
+    if optimizer == "adafactor":
+        return partial(adafactor_update, lr=lr)
+    raise _unknown(optimizer)
+
+
+def init_state(params, optimizer="adamw", *, n_slots: int = 1) -> TrainState:
+    """A fresh state: step 0, gv 0 and zero optimizer state.  Adafactor
+    keeps its statistics in the reference's stacked shapes, over the
+    model's ``n_slots = len(cfg.pattern)`` pattern slots."""
+    if optimizer == "adamw":
+        opt = adamw_init(params)
+    elif optimizer == "adafactor":
+        opt = adafactor_init(params, n_slots)
+    else:
+        raise _unknown(optimizer)
     zero = lambda: torch.zeros((), dtype=torch.int32,
                                device=opt["step"].device)
     return TrainState(params=params, opt=opt, gv=zero(), step=zero())
@@ -96,49 +118,94 @@ def _value_and_grad(loss, params, batch):
     return value.detach(), unflatten(params, list(grads))
 
 
+def _accumulate(loss, params, batch, n_microbatches: int):
+    """(loss, gradients) of the batch.  Over several microbatches the
+    transactions accumulate in float32 in sequence order, each a
+    fixed-order float add, then divide by their number."""
+    if n_microbatches == 1:
+        return _value_and_grad(loss, params, batch)
+    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+    loss_sum = torch.zeros((), dtype=torch.float32,
+                           device=leaves(params)[0].device)
+    for mb in _split_microbatches(batch, n_microbatches):
+        value, g = _value_and_grad(loss, params, mb)
+        for a, b in zip(leaves(gsum), leaves(g)):
+            a.add_(b.float())
+        loss_sum = loss_sum + value
+        del g
+    return (loss_sum / n_microbatches,
+            tree_map(lambda g: g.div_(n_microbatches), gsum))
+
+
 def make_train_step(cfg: ModelConfig, *, optimizer="adamw",
                     mode: str = "baseline", n_microbatches: int = 1,
                     chunk=0, remat=True, lr=1e-3, wd=0.01):
     """A train step ``step(state, batch) -> (state', loss)``.  mode:
     ``"baseline"`` | ``"pot"``."""
-    _adamw_only(optimizer)
+    upd = _optimizer(optimizer, lr, wd)
     if mode not in ("baseline", "pot"):
         raise ValueError(f"mode must be 'baseline' or 'pot', got {mode!r}")
     loss = partial(loss_fn, cfg=cfg, chunk=chunk, remat=remat)
 
-    def apply(state, grads):
-        return adamw_update(state.params, grads, state.opt, lr=lr, wd=wd)
-
     def baseline_step(state: TrainState, batch):
         value, grads = _value_and_grad(loss, state.params, batch)
-        params, opt = apply(state, grads)
+        params, opt = upd(state.params, grads, state.opt)
         return dataclasses.replace(state, params=params, opt=opt,
                                    step=state.step + 1), value
 
     def pot_step(state: TrainState, batch):
-        if n_microbatches > 1:
-            # ordered commits: the microbatch transactions accumulate in
-            # sequence order, each a fixed-order float add
-            gsum = tree_map(lambda p: torch.zeros(p.shape,
-                                                  dtype=torch.float32,
-                                                  device=p.device),
-                            state.params)
-            loss_sum = torch.zeros((), dtype=torch.float32,
-                                   device=state.step.device)
-            for mb in _split_microbatches(batch, n_microbatches):
-                value, g = _value_and_grad(loss, state.params, mb)
-                for a, b in zip(leaves(gsum), leaves(g)):
-                    a.add_(b.float())
-                loss_sum = loss_sum + value
-                del g
-            grads = tree_map(lambda g: g.div_(n_microbatches), gsum)
-            value = loss_sum / n_microbatches
-        else:
-            value, grads = _value_and_grad(loss, state.params, batch)
+        # ordered commits of the microbatch transactions
+        value, grads = _accumulate(loss, state.params, batch,
+                                   n_microbatches)
         # fast-mode direct commit (one fused-kernel launch per leaf)
-        params, opt = apply(state, grads)
+        params, opt = upd(state.params, grads, state.opt)
         return dataclasses.replace(state, params=params, opt=opt,
                                    gv=state.gv + 1,
                                    step=state.step + 1), value
 
     return pot_step if mode == "pot" else baseline_step
+
+
+def make_pot_dp_step(cfg: ModelConfig, group=None, *, optimizer="adamw",
+                     n_microbatches: int = 1, lr=1e-3, wd=0.01,
+                     remat=False):
+    """The fully deterministic pure data-parallel Pot step over the ranks
+    of ``group`` (the default process group when None; no process group
+    at all is one rank).
+
+    Every rank calls ``step(state, batch)`` with the same state and the
+    same global batch and takes rank i's contiguous slice of its rows
+    (the reference's ``shard_map`` over the data axis).  Its gradient is
+    a preordered transaction (the sequencer's order is the ring
+    position): microbatches accumulate in float32 in sequence order, the
+    gradients and the loss cross ranks by the fixed-ring ordered
+    reduction, divided by the rank count, and every rank applies the
+    same fast-mode commit, with ``gv`` and ``step`` + 1.  The weights are
+    replicated."""
+    upd = _optimizer(optimizer, lr, wd)
+    n_shards, rank = ring_position(group)
+    loss = partial(loss_fn, cfg=cfg, remat=remat)
+
+    def step(state: TrainState, batch):
+        b = batch["tokens"].shape[0]
+        if b % n_shards:
+            raise ValueError(f"global batch of {b} does not split over "
+                             f"{n_shards} ranks")
+        part = b // n_shards
+        local = {k: a[rank * part:(rank + 1) * part]
+                 for k, a in batch.items()}
+        value, grads = _accumulate(loss, state.params, local,
+                                   n_microbatches)
+        # ordered commit across ranks: the fixed-ring deterministic sum
+        # (the reduction's own output, or at one rank the gradient buffer
+        # itself, divided in place)
+        grads = tree_map(
+            lambda g: ordered_ring_reduce(g, group).div_(n_shards), grads)
+        value = ordered_ring_reduce(value[None], group)[0] / n_shards
+        params, opt = upd(state.params, grads, state.opt)
+        return dataclasses.replace(state, params=params, opt=opt,
+                                   gv=state.gv + 1,
+                                   step=state.step + 1), value
+
+    return step

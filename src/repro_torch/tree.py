@@ -60,3 +60,19 @@ def tree_map(fn, tree, *rest):
     if any(len(c) != len(cols[0]) for c in cols):
         raise ValueError("trees of different structure")
     return unflatten(tree, [fn(*xs) for xs in zip(*cols)])
+
+
+def flatten_up_to(like, tree) -> list:
+    """The subtrees of ``tree`` at the positions of ``like``'s leaves, in
+    ``like``'s leaf order (JAX's ``treedef.flatten_up_to``): ``tree``
+    holds ``like``'s structure with a subtree where ``like`` has a leaf.
+    Dicts are matched by key, so the two may order their keys apart."""
+    kids = _children(like)
+    if kids is None:
+        return [tree]
+    if isinstance(like, dict):
+        sub = [tree[k] for k in like]
+    else:
+        sub = _children(tree)
+    return [x for k, t in zip(kids, sub, strict=True)
+            for x in flatten_up_to(k, t)]

@@ -47,7 +47,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "repro_torch.ckpt.checkpoint, repro_torch.core.checkpoint, "
         "repro_torch.launch.train, repro_torch.tree, "
         "repro_torch.kernels.validate, repro_torch.core.occ, "
-        "repro_torch.core.pogl, repro_torch.core.destm\n"
+        "repro_torch.core.pogl, repro_torch.core.destm, "
+        "repro_torch.core.legacy_scan, repro_torch.launch.train_lm, "
+        "repro_torch.runtime.straggler\n"
         "from repro_torch.configs import get_config\n"
         "get_config('stablelm-12b')\n"
         "from repro_torch.kernels import _build\n"
