@@ -185,6 +185,28 @@ Phases, each printing its own lines:
    0.01 of that sum bitwise equal to the CPU; the ms of each.  The
    cross-process ring runs in the CPU tests over gloo; NCCL across cards
    waits for a machine with several;
+16. (run after 7) the other layer kinds at full width and depth, one
+   family at a time, random bf16 weights from SEED, each family's freed
+   before the next loads: recurrentgemma-9b (RG-LRU and local attention,
+   19.1 GB), mamba2-370m, deepseek-moe-16b (33.8 GB) and
+   whisper-medium.  a. a ``Session`` as phase 6 (8 slots, ``max_seq``
+   256, 32 greedy steps, two replicas with reversed arrivals: tokens and
+   fingerprint bitwise equal, the commit kernel launched), ms per step
+   against the weights and cache read once, tokens/s, peak memory and a
+   device profile; c. the family cut to one pattern group (widths
+   untouched), float32 on the card and on the CPU from the same
+   weights: prefill logits, the prefill cache and 4 decode steps'
+   logits within rtol = atol = 3e-2; b. ``lm.prefill`` of 4 prompts of
+   4,096 tokens (whisper 448, after ``lm.encode`` over 1,504 frames;
+   recurrentgemma's local layers take the banded form) and 16
+   teacher-forced decode steps from its cache, each timed against its
+   bound (FLOPs over a bf16 matmul rate measured in the run; bytes over
+   the memory rate), then the cache path held against the parallel
+   pass at row 0 in float32 within rtol = atol = 3e-2 (bf16, at full
+   depth, rounds about 0.3 from float32 on both paths: the bf16 decode
+   is held to twice ``lm.forward``'s own distance, as phase 7 holds
+   its decode; a MoE model's check runs under a capacity no expert
+   fills, see ``family_prefill``);
 10b. (run last) each engine pipelined: ``run_stream`` at
    ``pipeline_depth=2`` over the first 256 rows of the stream's first
    three batches on the card, equal to the same engine's serial run on the card
@@ -250,6 +272,20 @@ KILL_CUT = 256          # phase 12's SIGKILL run: the budget, 2 batches of it
 SCAN_K = 64             # phase 13: the scan oracle walks K one by one
 RING_RANKS = 8          # phase 15: contributions of 8 ranks at w1's shape
 TOPK_RATIO = 0.01
+
+# phase 16: the other layer kinds, (arch, prompt tokens, layers of the
+# card-against-CPU cut: one pattern group)
+FAMILIES = (
+    ("recurrentgemma-9b", 4096, 3),  # banded prefill: 2 windows of 2,048
+    ("mamba2-370m", 4096, 2),        # 16 SSD chunks of 256
+    ("deepseek-moe-16b", 4096, 2),   # prefill capacity 1,920 per expert
+    ("whisper-medium", 448, 2),      # Whisper's text context, 1,504 frames
+)
+PREFILL_BATCH = 4
+PREFILL_DECODE = 16
+FAMILY_HELD_PROMPT = 512
+FAMILY_HELD_DECODE = 4
+MATMUL_N = 8192         # the bf16 rate prefill bounds are taken against
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 x
@@ -1198,21 +1234,16 @@ def weight_bytes(params) -> int:
     return size([params["layers"], params["final_norm"], params["head"]])
 
 
-def phase_serve():
-    """Serving at full width and depth, two replicas."""
+def serve_replicas(cfg, params):
+    """SERVE_SLOTS requests through a ``Session`` for SERVE_STEPS greedy
+    steps, twice, the second time with the arrivals reversed: tokens and
+    ``fingerprint()`` bitwise equal, every token in the vocabulary and
+    the commit kernel launched.  Returns (slot 0's tokens, fingerprint,
+    the host seconds of each step of both runs, kv_commit launches)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import kv_commit
-    from repro_torch.models import lm
     from repro_torch.serve.session import Session
 
-    cfg = get_config(SERVE_ARCH)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = lm.init_params(
-        torch.Generator(device="cuda").manual_seed(SEED), cfg)
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
     requests = [(s, 3 + 7 * s) for s in range(SERVE_SLOTS)]
     torch.cuda.synchronize()
     kv_commit.reset_launches()
@@ -1232,23 +1263,40 @@ def phase_serve():
     torch.cuda.synchronize()
     launches = kv_commit.LAUNCHES["kv_commit"]
     (t1, f1, times1), (t2, f2, times2) = runs
-    assert np.array_equal(t1, t2), "replica tokens differ"
-    assert f1 == f2, "replica fingerprints differ"
+    assert np.array_equal(t1, t2), f"{cfg.name}: replica tokens differ"
+    assert f1 == f2, f"{cfg.name}: replica fingerprints differ"
     assert ((t1 >= 0) & (t1 < cfg.padded_vocab)).all()
     assert launches > 0, "kv_commit was never launched on the serving path"
-    ms = float(np.median(times1 + times2)) * 1e3
+    return t1[0], f1, times1 + times2, launches
+
+
+def phase_serve():
+    """Serving at full width and depth, two replicas."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    slot0, fp, times, launches = serve_replicas(cfg, params)
+    ms = float(np.median(times)) * 1e3
     nbytes = weight_bytes(params)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"weights {nbytes / 1e9:.3f} GB bf16 (init {t_init:.2f} s); "
         f"{SERVE_SLOTS} slots x {SERVE_STEPS} steps x 2 replicas: median "
-        f"{ms:.3f} ms per step (first {times1[0] * 1e3:.1f} ms), "
+        f"{ms:.3f} ms per step (first {times[0] * 1e3:.1f} ms), "
         f"{SERVE_SLOTS / ms * 1e3:.1f} tokens/s; weight-streaming bound "
         f"{bound:.3f} ms per step; peak allocated {peak:.2f} GB; "
         f"kv_commit launches {launches}; replicas (reversed arrivals) "
-        f"bitwise identical, fingerprint {f1:#010x}")
-    log(f"  slot 0 tokens: {t1[0].tolist()}")
+        f"bitwise identical, fingerprint {fp:#010x}")
+    log(f"  slot 0 tokens: {slot0.tolist()}")
     profile_decode(params, cfg, ms)
     return params, launches
 
@@ -1307,6 +1355,7 @@ def teacher_forced(params, cfg, device, dtype):
     the CPU."""
     import torch
     from repro_torch.models import lm
+    from repro_torch.tree import leaves
     rng = np.random.default_rng(SEED)
     cache = lm.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_SEQ, device, dtype)
     pos = rng.integers(0, SERVE_MAX_SEQ - HELD_STEPS, SERVE_SLOTS)
@@ -1318,8 +1367,7 @@ def teacher_forced(params, cfg, device, dtype):
             torch.from_numpy(pos.astype(np.int32)).to(device), cfg)
         logits.append(out.float().cpu())
         pos = pos + 1
-    return torch.stack(logits), {k: v.float().cpu() for k, v in
-                                 cache.items()}
+    return torch.stack(logits), [t.float().cpu() for t in leaves(cache)]
 
 
 def phase_serve_held(params):
@@ -1359,10 +1407,8 @@ def phase_serve_held(params):
     assert all(torch.isfinite(r[0]).all() for r in runs.values())
     torch.testing.assert_close(runs["card f32"][0], runs["cpu f32"][0],
                                rtol=TOL, atol=TOL)
-    for name in ("k", "v"):
-        torch.testing.assert_close(runs["card f32"][1][name],
-                                   runs["cpu f32"][1][name], rtol=TOL,
-                                   atol=TOL)
+    for a, b in zip(runs["card f32"][1], runs["cpu f32"][1], strict=True):
+        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
     card_err, cpu_err = dist("card bf16", "cpu f32"), dist("cpu bf16",
                                                            "cpu f32")
     assert card_err <= 2 * cpu_err, (card_err, cpu_err)
@@ -2371,6 +2417,319 @@ def replica_process(cfg, tmp) -> tuple[int, dict | None]:
         return r.returncode, json.load(f)
 
 
+def bf16_matmul_rate() -> float:
+    """FLOP/s of one (MATMUL_N,)^2 x (MATMUL_N,)^2 bf16 ``torch.matmul``,
+    measured (the rate the prefill bounds divide by)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    a, b = (torch.randn((MATMUL_N, MATMUL_N), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    ms = cuda_time_ms(lambda: a @ b, 10)
+    return 2 * MATMUL_N ** 3 / (ms / 1e3)
+
+
+def tensor_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def n_params(tree) -> int:
+    from repro_torch.tree import leaves
+    return sum(t.numel() for t in leaves(tree))
+
+
+def matmul_params(cfg, params) -> tuple[int, int]:
+    """(parameters each token's matmuls multiply, parameters each encoder
+    frame's multiply) in the decoder layers: a routed expert's weights
+    count top_k of n_experts, a cross-attention layer's K/V projections
+    count per frame."""
+    per_token = per_frame = 0
+    for p in params["layers"]:
+        for group, sub in p.items():
+            for name, t in (sub.items() if isinstance(sub, dict)
+                            else [(group, sub)]):
+                n = n_params(t)
+                if group == "moe" and name in ("w1", "w2", "w3"):
+                    per_token += n * cfg.top_k // cfg.n_experts
+                elif group == "xattn" and name in ("wk", "wv"):
+                    per_frame += n
+                else:
+                    per_token += n
+    return per_token, per_frame
+
+
+def family_serve(cfg, params, t_init):
+    """Phase 16a: a family served through ``Session`` as phase 6 serves
+    stablelm-12b."""
+    import torch
+    from repro_torch.models import lm
+
+    slot0, fp, times, launches = serve_replicas(cfg, params)
+    ms = float(np.median(times)) * 1e3
+    nbytes = weight_bytes(params)
+    cache = tensor_bytes(lm.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_SEQ,
+                                       "cuda"))
+    bound = (nbytes + cache) / HBM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  serve: {SERVE_SLOTS} slots x {SERVE_STEPS} steps x 2 replicas "
+        f"(init {t_init:.2f} s): median {ms:.3f} ms per step (first "
+        f"{times[0] * 1e3:.1f} ms), {SERVE_SLOTS / ms * 1e3:.1f} tokens/s; "
+        f"bound {bound:.3f} ms per step (weights {nbytes / 1e9:.3f} GB + "
+        f"cache {cache / 1e9:.3f} GB read once); peak allocated "
+        f"{peak:.2f} GB; kv_commit launches {launches}; replicas (reversed "
+        f"arrivals) bitwise identical, fingerprint {fp:#010x}")
+    log(f"    slot 0 tokens: {slot0.tolist()}")
+    profile_decode(params, cfg, ms)
+    return launches
+
+
+def family_prefill(cfg, params, prompt: int, rate: float):
+    """Phase 16b, in bf16: ``lm.prefill`` of PREFILL_BATCH prompts (after
+    the encoder over their frames), then PREFILL_DECODE teacher-forced
+    ``decode_step``s from its cache, each timed; and ``lm.forward`` over
+    prompt + 1 tokens.  Returns the inputs and row 0's first decode step
+    and forward logits at position ``prompt`` (for
+    :func:`family_consistency`).
+
+    A MoE model's capacity binds (capacity factor 1.25 and skewed
+    routing): ``forward`` drops the latest tokens' assignments to full
+    experts, the last token's first, while a decode step of one row
+    (capacity 1, a token's top-k experts distinct) drops nothing -- the
+    reference's capacity rule (ROADMAP queue 3).  So row 0's check runs
+    on a one-row prefill under a capacity factor of (E + 1/2) / k, where
+    no expert can fill (capacity >= T), as the reference's own
+    consistency test gives deepseek-smoke a factor of 8."""
+    import torch
+    from repro_torch.models import blocks, lm
+
+    b = PREFILL_BATCH
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, prompt + PREFILL_DECODE))).to("cuda")
+    frames = enc = None
+    t_enc, enc_flops = 0.0, 0
+    if cfg.encoder_layers:
+        frames = torch.from_numpy(rng.normal(size=(
+            b, cfg.n_frames, cfg.d_model)).astype(np.float32)).to("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = lm.encode(params, frames, cfg)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        enc_flops = 2 * b * cfg.n_frames * n_params(params["enc_layers"])
+    if "local" in cfg.pattern:
+        assert blocks.uses_banded("local", True, prompt, cfg), \
+            f"{cfg.name}: a {prompt}-token prompt is not the banded form"
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(params, tokens[:, :prompt], cfg,
+                               max_seq=prompt + PREFILL_DECODE, enc=enc)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert logits.shape == (b, 1, cfg.padded_vocab)
+    assert torch.isfinite(logits).all()
+    cache_bytes = tensor_bytes(cache)
+    pos = torch.full((b,), prompt, dtype=torch.int32, device="cuda")
+    times = []
+    for i in range(PREFILL_DECODE):
+        t0 = time.perf_counter()
+        out, cache = lm.decode_step(params, cache,
+                                    tokens[:, prompt + i:prompt + i + 1],
+                                    pos + i, cfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        assert torch.isfinite(out).all()
+        if i == 0:
+            first = out[:1, 0].float()
+    del cache
+    check = cfg
+    if cfg.n_experts:
+        check = dataclasses.replace(cfg, capacity_factor=(
+            cfg.n_experts + 0.5) / cfg.top_k)
+        _, c1 = lm.prefill(params, tokens[:1, :prompt], check,
+                           max_seq=prompt + 1)
+        first, _ = lm.decode_step(params, c1, tokens[:1, prompt:prompt + 1],
+                                  pos[:1], check)
+        first = first[:, 0].float()
+        del c1
+    fwd = lm.forward(params, tokens[:1, :prompt + 1], check,
+                     enc=None if enc is None else enc[:1])[:, prompt].float()
+    per_token, per_frame = matmul_params(cfg, params)
+    flops = (2 * b * prompt * per_token + 2 * b * cfg.n_frames * per_frame
+             + 2 * b * n_params(params.get("head", params["embed"])))
+    dec_ms = float(np.median(times[1:])) * 1e3
+    dec_bound = (weight_bytes(params) + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    enc_line = (f"; the encoder over {b} x {cfg.n_frames} frames "
+                f"{t_enc * 1e3:.1f} ms against a FLOP bound of "
+                f"{enc_flops / rate * 1e3:.4f} ms" if enc is not None else "")
+    log(f"  prefill {b} x {prompt} tokens: {t_pre * 1e3:.1f} ms, "
+        f"{b * prompt / t_pre:.0f} tokens/s, FLOP bound "
+        f"{flops / rate * 1e3:.4f} ms (2 x {per_token:,} active parameters "
+        f"a token{f' + {per_frame:,} a frame' if per_frame else ''} + the "
+        f"head on the last row); peak allocated {peak:.2f} GB{enc_line}")
+    log(f"  decode from the prefill cache: {PREFILL_DECODE} steps, median "
+        f"{dec_ms:.3f} ms per step (first {times[0] * 1e3:.1f} ms), bound "
+        f"{dec_bound:.4f} ms (weights + cache read once)")
+    return dict(tokens=tokens[:1, :prompt + 1],
+                frames=None if frames is None else frames[:1],
+                first=first, fwd=fwd, cfg=check)
+
+
+def to_float32(tree) -> None:
+    """Every tensor of a parameter tree (dicts and lists) upcast to
+    float32 in place, one leaf at a time, so the bf16 and float32 copies
+    of the whole tree never coexist."""
+    import torch
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in list(items):
+        if torch.is_tensor(v):
+            tree[k] = v.float()
+        else:
+            to_float32(v)
+
+
+def family_consistency(params, prompt: int, run: dict):
+    """Phase 16b, held: the cache path against the parallel path, row 0,
+    under ``run["cfg"]`` (a MoE model's no-drop capacity).
+
+    In float32 (the family's weights upcast in place, ``params`` then
+    float32): prefill of ``prompt`` tokens and one decode step against
+    the parallel pass over prompt + 1 (``lm.prefill``'s trunk, the one
+    ``lm.forward`` runs, which computes in bf16 whatever it is given)
+    within the reference tests' rtol = atol = TOL.  In bf16 at full
+    width and depth both paths round far more than TOL (recurrentgemma-
+    9b's bf16 forward is 0.31 from float32 on the card); there the bf16
+    decode step (``run["first"]``) may be no further from the float32
+    logits than twice ``lm.forward``'s own bf16 logits are, as phase 7
+    holds the card's bf16 decode -- but for a MoE model, where a router
+    near-tie in either bf16 path moves a whole expert's output, so its
+    two distances are only printed."""
+    import torch
+    from repro_torch.models import lm
+
+    cfg = run["cfg"]
+    to_float32(params)
+    torch.cuda.empty_cache()
+    tokens, frames = run["tokens"], run["frames"]
+    enc = None if frames is None else lm.encode(params, frames, cfg)
+    _, cache = lm.prefill(params, tokens[:, :prompt], cfg,
+                          max_seq=prompt + 1, enc=enc)
+    dec, _ = lm.decode_step(params, cache, tokens[:, prompt:], torch.full(
+        (1,), prompt, dtype=torch.int32, device="cuda"), cfg)
+    del cache
+    par, _ = lm.prefill(params, tokens, cfg, enc=enc)
+    dec, par = dec[:, 0], par[:, 0]
+    err32 = float((dec - par).abs().max())
+    torch.testing.assert_close(dec, par, rtol=TOL, atol=TOL)
+    dec16 = float((run["first"] - par).abs().max())
+    fwd16 = float((run["fwd"] - par).abs().max())
+    if not cfg.n_experts:
+        assert dec16 <= 2 * fwd16, (dec16, fwd16)
+    log(f"  decode after prefill against the parallel pass over "
+        f"{prompt + 1} tokens, row 0"
+        f"{f', capacity factor {cfg.capacity_factor:.4f}' if cfg.n_experts else ''}"
+        f": float32 max |diff| {err32:.3e} within rtol = atol = {TOL}; "
+        f"bf16 decode {dec16:.5f} from the float32 logits"
+        f"{'' if cfg.n_experts else ' <= 2 x'} {fwd16:.5f} (bf16 forward's"
+        f" own); logits std {float(par.std()):.3f}")
+
+
+def family_held(cfg, params, prompt: int, n_layers: int):
+    """Phase 16c: the family at full width cut to one pattern group,
+    float32 (the same bf16 weights, upcast) on the card and on the CPU:
+    prefill logits, the prefill cache and FAMILY_HELD_DECODE decode
+    steps' logits within rtol = atol = TOL."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+
+    cut = dataclasses.replace(cfg, n_layers=n_layers,
+                              encoder_layers=min(cfg.encoder_layers,
+                                                 n_layers))
+    assert lm.layer_kinds(cut) == lm.layer_kinds(cfg)[:n_layers]
+    card = dict(params, layers=params["layers"][:n_layers])
+    if cfg.encoder_layers:
+        card["enc_layers"] = params["enc_layers"][:n_layers]
+    rng = np.random.default_rng(SEED + 1)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, prompt + FAMILY_HELD_DECODE)))
+    frames = (torch.from_numpy(rng.normal(size=(
+        1, cfg.n_frames, cfg.d_model)).astype(np.float32))
+        if cfg.encoder_layers else None)
+
+    def run(p, device):
+        enc = (lm.encode(p, frames.to(device), cut)
+               if frames is not None else None)
+        logits, cache = lm.prefill(p, tokens[:, :prompt].to(device), cut,
+                                   max_seq=prompt + FAMILY_HELD_DECODE,
+                                   enc=enc)
+        outs = [logits.cpu()]
+        held = [t.to("cpu", copy=True) for t in leaves(cache)]
+        for i in range(FAMILY_HELD_DECODE):
+            out, cache = lm.decode_step(
+                p, cache, tokens[:, prompt + i:prompt + i + 1].to(device),
+                torch.full((1,), prompt + i, dtype=torch.int32,
+                           device=device), cut)
+            outs.append(out.cpu())
+        return torch.cat(outs, 1), held
+
+    t0 = time.perf_counter()
+    got = run(lm.params_to(card, "cuda", torch.float32), "cuda")
+    t_card = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    exp = run(lm.params_to(card, "cpu", torch.float32), "cpu")
+    t_cpu = time.perf_counter() - t0
+    assert torch.isfinite(exp[0]).all()
+    torch.testing.assert_close(got[0], exp[0], rtol=TOL, atol=TOL)
+    worst = 0.0
+    for a, b in zip(got[1], exp[1], strict=True):
+        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+        worst = max(worst, float((a - b).abs().max()))
+    log(f"  held to account ({n_layers} layers, full width, float32, "
+        f"1 x {prompt} tokens + {FAMILY_HELD_DECODE} decode steps; card "
+        f"{t_card:.1f} s, CPU {t_cpu:.1f} s): logits max |card - CPU| "
+        f"{float((got[0] - exp[0]).abs().max()):.3e}, prefill cache "
+        f"({len(exp[1])} tensors) {worst:.3e}, within rtol = atol = {TOL}")
+
+
+def phase_families() -> int:
+    """Phase 16: the other layer kinds at full width, one family at a
+    time.  Returns the commit kernel's launches of the families'
+    serving runs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    rate = bf16_matmul_rate()
+    log(f"families: bf16 matmul rate {rate:.4e} FLOP/s measured "
+        f"({MATMUL_N}^3, the prefill bounds' rate)")
+    launches = 0
+    for arch, prompt, held in FAMILIES:
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = lm.init_params(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        kinds = sorted(set(lm.layer_kinds(cfg)))
+        log(f"family {cfg.name}: {cfg.n_layers} layers ({', '.join(kinds)}"
+            f"{f', {cfg.n_experts} experts top-{cfg.top_k}' if cfg.n_experts else ''}"
+            f"{f', encoder {cfg.encoder_layers} layers' if cfg.encoder_layers else ''}"
+            f"), d_model {cfg.d_model}, "
+            f"{n_params(params):,} bf16 parameters")
+        launches += family_serve(cfg, params, t_init)
+        family_held(cfg, params, FAMILY_HELD_PROMPT, held)
+        run = family_prefill(cfg, params, prompt, rate)
+        family_consistency(params, prompt, run)   # params now float32
+        del params, run
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2419,6 +2778,7 @@ def main() -> int:
     phase_serve_held(params)
     del params                # the 24 GB of serving weights
     torch.cuda.empty_cache()
+    launches["kv_commit"] += phase_families()
     launches["fused_adamw"], trained = phase_train()
     launches["fused_adamw_speculative"] = spec_launches
     phase_train_held()

@@ -14,8 +14,9 @@ A cross-batch speculation seed crosses with :func:`seed_from_numpy` /
 :func:`formed_batch_from_numpy` / :func:`formed_batch_to_numpy`, so that
 both packages can be handed the same seed and the same batches.
 
-The serving path's LM weights cross with :func:`lm_params_from_numpy`,
-the training path's whole state (weights, the AdamW moments or the
+The serving path's LM weights cross with :func:`lm_params_from_numpy`
+and its decode caches with :func:`lm_cache_from_numpy` /
+:func:`lm_cache_to_numpy`, the training path's whole state (weights, the AdamW moments or the
 Adafactor statistics, and the counters) with
 :func:`train_state_from_numpy`.
 """
@@ -33,7 +34,6 @@ from repro_torch.core.ingress import FormedBatch
 from repro_torch.core.protocol import SpecSeed
 from repro_torch.core.tstore import TStore
 from repro_torch.core.txn import TxnBatch, TxnResult
-from repro_torch.models import lm
 from repro_torch.models.blocks import C
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adafactor import adafactor_init
@@ -149,23 +149,84 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     numpy (``jax.tree.map(np.asarray, params)``).
 
     Each ``layers["i"]`` leaf of shape (G, ...) is unstacked into one
-    parameter dict per layer (layer ``g * len(pattern) + i``).  Values
-    are stored in ``dtype``: bf16 by default, which is what the
-    reference's ``_cast`` makes of every float32 parameter at each use,
-    so no bit changes; float32 keeps the training path's masters."""
-    lm.check_supported(cfg)
-
+    parameter dict per layer (layer ``g * len(pattern) + i``), the
+    ``tail`` layers follow, and an encoder's ``enc_layers`` (G_enc, ...)
+    are unstacked into ``enc_layers``.  Values are stored in ``dtype``:
+    bf16 by default, which is what the reference's ``_cast`` makes of
+    every float32 parameter at each use, so no bit changes; float32
+    keeps the training path's masters."""
     def tensor(a):
         return torch.from_numpy(np.array(a, np.float32)).to(
             device=device, dtype=dtype)
 
+    def unstack(stacked):
+        n = np.shape(stacked["ln1"])[0]
+        return [tree_map(lambda a: tensor(np.asarray(a)[g]), stacked)
+                for g in range(n)]
+
     out = {k: tensor(tree[k]) for k in ("embed", "final_norm", "head")
            if k in tree}
-    n_groups = np.shape(tree["layers"]["0"]["ln1"])[0]
-    out["layers"] = [
-        tree_map(lambda a: tensor(np.asarray(a)[g]), tree["layers"][str(i)])
-        for g in range(n_groups) for i in range(len(cfg.pattern))]
+    groups = [unstack(tree["layers"][str(i)])
+              for i in range(len(cfg.pattern))]
+    out["layers"] = [slot[g] for g in range(cfg.n_groups) for slot in groups]
+    out["layers"] += [tree_map(tensor, tree["tail"][str(i)])
+                      for i in range(len(cfg.tail_pattern))]
+    if "enc_layers" in tree:
+        out["enc_layers"] = unstack(tree["enc_layers"])
+        out["enc_norm"] = tensor(tree["enc_norm"])
     return out
+
+
+_KV = ("k", "v", "xk", "xv")
+
+
+def lm_cache_from_numpy(tree, cfg: ModelConfig, device="cuda",
+                        dtype=C) -> list:
+    """The port's decode cache (one dict per layer, ``lm.init_cache``'s
+    layout) from the reference's cache tree as numpy (from its
+    ``init_cache`` or ``prefill``): each slot's (G, ...) leaves
+    unstacked in the reference's layer order, the tail's after them,
+    and an encoder-decoder's ``cross_k`` / ``cross_v`` (G, ...) spread
+    to each group's layer as ``xk`` / ``xv``.  K/V rows are stored in
+    ``dtype``, the recurrent states in float32."""
+    def tensor(name, a):
+        return torch.from_numpy(np.array(a, np.float32)).to(
+            device=device, dtype=dtype if name in _KV else torch.float32)
+
+    def layer(slot, g=None):
+        pick = (lambda a: a) if g is None else (lambda a: np.asarray(a)[g])
+        c = {name: tensor(name, pick(a)) for name, a in slot.items()}
+        if "cross_k" in tree and g is not None:
+            c["xk"] = tensor("xk", pick(tree["cross_k"]))
+            c["xv"] = tensor("xv", pick(tree["cross_v"]))
+        return c
+
+    out = [layer(tree[str(i)], g) for g in range(cfg.n_groups)
+           for i in range(len(cfg.pattern))]
+    return out + [layer(tree["tail"][str(i)])
+                  for i in range(len(cfg.tail_pattern))]
+
+
+def lm_cache_to_numpy(cache: list, cfg: ModelConfig) -> dict:
+    """The reference's cache tree (float32 numpy) from the port's cache:
+    the inverse of :func:`lm_cache_from_numpy`.  bf16 rows become
+    float32 without loss; cast them back for the reference with
+    ``jnp.asarray(a, jnp.bfloat16)``."""
+    host = lambda t: t.float().cpu().numpy()
+    p, g = len(cfg.pattern), cfg.n_groups
+    tree = {}
+    for i in range(p):
+        rows = [cache[j * p + i] for j in range(g)]
+        tree[str(i)] = {name: np.stack([host(c[name]) for c in rows])
+                        for name in rows[0] if name not in ("xk", "xv")}
+    if cfg.encoder_layers:
+        for name, key in (("xk", "cross_k"), ("xv", "cross_v")):
+            tree[key] = np.stack([host(cache[j * p][name])
+                                  for j in range(g)])
+    if cfg.tail_pattern:
+        tree["tail"] = {str(i): {name: host(t) for name, t in c.items()}
+                        for i, c in enumerate(cache[p * g:])}
+    return tree
 
 
 def _tensors_like(like, src, device):

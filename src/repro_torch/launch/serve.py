@@ -1,9 +1,10 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
 
 Batched deterministic decoding with preordered slot commits
-(``serve/session.py``) of the architecture's smoke configuration, with
-weights drawn from a seeded generator on ``--device`` (the card by
-default).  --replica-check runs two replicas with different request
+(``serve/session.py``) of the architecture's smoke configuration (any
+of the ten: global or sliding-window attention, Mamba2, RG-LRU, MoE,
+whisper's encoder-decoder), with weights drawn from a seeded generator
+on ``--device`` (the card by default).  --replica-check runs two replicas with different request
 interleavings and verifies bitwise-identical output — the paper's
 fault-tolerance-by-replication property, live.
 """

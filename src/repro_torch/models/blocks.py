@@ -15,14 +15,15 @@ Conventions, as in the reference:
   product;
 - masked scores are ``NEG`` (a large finite negative), not ``-inf``.
 
-Here: RMSNorm, RoPE, the full-sequence attention of training
-(``attn_apply`` over ``attend_full``, with grouped KV repeated to full
-heads, optionally in query chunks), grouped decode attention
-(whole-cache and chunked online-softmax forms) and the SwiGLU / GELU
-MLP.  The sliding-window attention (``attend_window_banded``, the
-``"local"`` kind) is not ported yet, and ``attn_apply`` does not return
-the K/V rows that prefill would cache.  The reference's sharding
-constraints are identities on one card and are left out.
+Here: RMSNorm, RoPE, the full-sequence attention of training and
+prefill (``attn_apply`` over ``attend_full``, with grouped KV repeated to
+full heads, optionally windowed, non-causal or in query chunks, and over
+``attend_window_banded`` for the ``"local"`` kind's long causal
+sequences; it returns the K/V rows that prefill caches, and takes a
+cross-attention source), grouped decode attention (whole-cache and
+chunked online-softmax forms; ``attn_decode`` also for the local window
+and for cross-attention) and the SwiGLU / GELU MLP.  The reference's
+sharding constraints are identities on one card and are left out.
 """
 
 from __future__ import annotations
@@ -48,11 +49,15 @@ def _normal(gen: torch.Generator, shape, std: float,
                         dtype=torch.float32) * std).to(dtype)
 
 
-def _cast(p: dict) -> dict:
-    """A layer's parameters as used: every float32 tensor of the (nested)
-    dict cast to ``C``, the others as they are."""
-    return {k: _cast(a) if isinstance(a, dict) else
-            a.to(C) if a.dtype == torch.float32 else a
+def _cast(p: dict, dtype=C) -> dict:
+    """A layer's parameters as used: every floating tensor of the
+    (nested) dict cast to ``dtype``, the others as they are.  The
+    full-sequence layers cast to their activations' dtype: float32
+    masters to ``C`` under the training path's bf16 activations (the
+    reference's ``_cast``), and nothing where the weights are stored in
+    the activations' dtype, as the serving path stores them."""
+    return {k: _cast(a, dtype) if isinstance(a, dict) else
+            a.to(dtype) if a.is_floating_point() else a
             for k, a in p.items()}
 
 
@@ -115,14 +120,22 @@ def _sdpa_flat(q, k, v, mask):
     return torch.einsum("bhqs,bshd->bqhd", probs, v)
 
 
-def attend_full(q, k, v, q_pos, kv_pos, *, chunk=0):
-    """Exact causal attention; q (B,Q,H,hd) against k/v (B,S,H,hd) (KV
-    already repeated to full heads).  q_pos (B, Q) / kv_pos (B, S) are
-    absolute positions for the causal mask.  ``chunk > 0`` computes the
-    queries ``chunk`` at a time (bounded score memory); Q must then be a
-    multiple of ``chunk``."""
+def attend_full(q, k, v, q_pos, kv_pos, *, causal=True, window=0, chunk=0):
+    """Exact attention; q (B,Q,H,hd) against k/v (B,S,H,hd) (KV already
+    repeated to full heads).  q_pos (B, Q) / kv_pos (B, S) are absolute
+    positions for the mask: causal, or all-true; ``window > 0`` also
+    keeps each query to the keys in (pos - window, pos].  ``chunk > 0``
+    computes the queries ``chunk`` at a time (bounded score memory); Q
+    must then be a multiple of ``chunk``."""
     def mask_for(qp):
-        return kv_pos[:, None, :] <= qp[:, :, None]
+        if causal:
+            m = kv_pos[:, None, :] <= qp[:, :, None]
+        else:
+            m = torch.ones((qp.shape[0], qp.shape[1], kv_pos.shape[1]),
+                           dtype=torch.bool, device=qp.device)
+        if window:
+            m = m & (kv_pos[:, None, :] > qp[:, :, None] - window)
+        return m
 
     nq = q.shape[1]
     if not chunk or nq <= chunk:
@@ -132,6 +145,45 @@ def attend_full(q, k, v, q_pos, kv_pos, *, chunk=0):
     return torch.cat([
         _sdpa_flat(q[:, i:i + chunk], k, v, mask_for(q_pos[:, i:i + chunk]))
         for i in range(0, nq, chunk)], dim=1)
+
+
+def banded_mask(n_chunks: int, window: int, device) -> torch.Tensor:
+    """(n_chunks, w, 2w) bool: query i of a chunk (at 2w-frame position
+    w + i) sees frame keys in (w + i - w, w + i]; the first chunk has no
+    previous chunk, so its first w frame keys are masked too."""
+    w = window
+    qpos = torch.arange(w, device=device)[:, None] + w
+    kpos = torch.arange(2 * w, device=device)[None, :]
+    m = (kpos <= qpos) & (kpos > qpos - w)
+    first = torch.arange(n_chunks, device=device)[:, None, None] == 0
+    return torch.where(first, m & (kpos >= w), m)
+
+
+def attend_window_banded(q, k, v, *, window):
+    """Sliding-window causal attention in O(S * window): the sequence is
+    cut into chunks of ``window``; each query chunk attends to its own
+    and the previous key chunk (zeros before the first) under
+    :func:`banded_mask`.  q/k/v (B, S, H, hd), S a multiple of
+    ``window``."""
+    b, s, h, hd = q.shape
+    w = window
+    if s % w:
+        raise ValueError(f"sequence {s} is not a multiple of window {w}")
+    nc = s // w
+    qc = q.reshape(b, nc, w, h, hd)
+    kc = k.reshape(b, nc, w, h, hd)
+    vc = v.reshape(b, nc, w, h, hd)
+    k2 = torch.cat([torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], 1),
+                    kc], dim=2)                      # (b, nc, 2w, h, hd)
+    v2 = torch.cat([torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], 1),
+                    vc], dim=2)
+    scores = torch.einsum("bnqhd,bnshd->bnhqs", qc.float(),
+                          k2.float()) * hd ** -0.5
+    mask = banded_mask(nc, w, q.device)
+    scores = torch.where(mask[None, :, None], scores, NEG)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bnhqs,bnshd->bnqhd", probs, v2)
+    return out.reshape(b, s, h, hd)
 
 
 def _sdpa(q, k, v, mask):
@@ -184,77 +236,134 @@ def _decode_attend_chunked(q, cache_k, cache_v, mask, chunk=2048):
     return out[:, None].to(q.dtype)                         # (B,1,KV,G,hd)
 
 
-def init_attn(gen: torch.Generator, cfg: ModelConfig, dtype=C) -> dict:
+def init_attn(gen: torch.Generator, cfg: ModelConfig, dtype=C,
+              cross=False) -> dict:
+    """Attention weights; a cross-attention layer has no QKV bias."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     std = d ** -0.5
     p = {"wq": _normal(gen, (d, h * hd), std, dtype),
          "wk": _normal(gen, (d, kv * hd), std, dtype),
          "wv": _normal(gen, (d, kv * hd), std, dtype),
          "wo": _normal(gen, (h * hd, d), std, dtype)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, width in (("bq", h * hd), ("bk", kv * hd),
                             ("bv", kv * hd)):
             p[name] = torch.zeros((width,), dtype=dtype, device=gen.device)
     return p
 
 
-def attn_apply(p, x, cfg: ModelConfig, *, positions=None, chunk=0):
-    """Causal self-attention over the full sequence (training).  x
-    (B, S, D) at ``positions`` (B, S), 0..S-1 by default.  Weights are
-    cast to ``C`` at use."""
-    p = _cast(p)
+def uses_banded(kind: str, causal: bool, s: int, cfg: ModelConfig) -> bool:
+    """The reference's choice of :func:`attend_window_banded`: a causal
+    ``"local"`` layer over more than one window, in whole windows."""
+    return bool(kind == "local" and causal and cfg.window
+                and s > cfg.window and s % cfg.window == 0)
+
+
+def attn_apply(p, x, cfg: ModelConfig, *, kind="attn", causal=True,
+               positions=None, kv_src=None, kv_positions=None, chunk=0,
+               use_rope=True, return_kv=False):
+    """Attention over the full sequence (training and prefill).  x
+    (B, S, D) at ``positions`` (B, S), 0..S-1 by default; ``kv_src``
+    (B, S_kv, D) is a cross-attention source (x itself by default), at
+    ``kv_positions`` (0..S_kv-1 for a source, else ``positions``).
+    Weights are cast to x's dtype at use.  ``return_kv`` also returns
+    the K/V rows (B, S_kv, KV, hd) after RoPE and before the grouped
+    heads are repeated: the rows prefill caches."""
+    p = _cast(p, x.dtype)
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    src = x if kv_src is None else kv_src.to(x.dtype)
+    s_kv = src.shape[1]
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = src @ p["wk"]
+    v = src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    k = k.reshape(b, s_kv, kv, hd)
+    v = v.reshape(b, s_kv, kv, hd)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    sin, cos = rope_tables(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, sin, cos)
-    k = apply_rope(k, sin, cos)
-    out = attend_full(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv),
-                      positions, positions, chunk=chunk)
-    return out.reshape(b, s, h * hd) @ p["wo"]
+    if kv_positions is None:
+        kv_positions = positions if kv_src is None else torch.arange(
+            s_kv, device=x.device)[None].expand(b, s_kv)
+    if use_rope:
+        sin, cos = rope_tables(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, sin, cos)
+        sin, cos = rope_tables(kv_positions, hd, cfg.rope_theta)
+        k = apply_rope(k, sin, cos)
+    k_rep, v_rep = _repeat_kv(k, h // kv), _repeat_kv(v, h // kv)
+    if uses_banded(kind, causal, s, cfg):
+        out = attend_window_banded(q, k_rep, v_rep, window=cfg.window)
+    else:
+        out = attend_full(q, k_rep, v_rep, positions, kv_positions,
+                          causal=causal,
+                          window=cfg.window if kind == "local" else 0,
+                          chunk=chunk)
+    out = out.reshape(b, s, h * hd) @ p["wo"]
+    return (out, k, v) if return_kv else out
 
 
-def attn_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig):
-    """One-token decode of a global-attention layer.  x (B, 1, D);
-    cache_k/v (B, Smax, KV, hd); pos (B,) position of the new token.
+def write_rows(cache, rows, slot):
+    """cache (B, S, KV, hd) row ``slot[b]`` of each batch element set to
+    ``rows[b]`` in place; rows of distinct batch elements, so no
+    duplicate index.  A slot past the cache rewrites the last row with
+    its own value (the reference's scatter drops it)."""
+    b, smax = cache.shape[:2]
+    idx_b = torch.arange(b, device=cache.device)
+    sc = slot.long().clamp(max=smax - 1)
+    keep = (slot < smax)[:, None, None]
+    cache[idx_b, sc] = torch.where(keep, rows.to(cache.dtype),
+                                   cache[idx_b, sc])
 
-    Writes the new K/V rows into ``cache_k`` / ``cache_v`` in place (a
-    row whose position is past the cache is dropped, as the reference's
-    scatter drops it) and returns ``(out, cache_k, cache_v)``."""
-    b, _, d = x.shape
+
+def decode_qkv(p, x, pos, cfg: ModelConfig, use_rope=True):
+    """The new token's query (B, 1, KV, G, hd) and K/V rows (B, 1, KV,
+    hd), RoPE at ``pos`` on the query and the key."""
+    b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = x @ p["wq"]
+    q, knew, vnew = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
-        q = q + p["bq"]
+        q, knew, vnew = q + p["bq"], knew + p["bk"], vnew + p["bv"]
     q = q.reshape(b, 1, kv, h // kv, hd)
-    sin, cos = rope_tables(pos[:, None], hd, cfg.rope_theta)
-    q = apply_rope(q, sin, cos)
-    knew = x @ p["wk"]
-    vnew = x @ p["wv"]
-    if "bk" in p:
-        knew, vnew = knew + p["bk"], vnew + p["bv"]
-    knew = apply_rope(knew.reshape(b, 1, kv, hd), sin, cos)
-    vnew = vnew.reshape(b, 1, kv, hd)
+    knew = knew.reshape(b, 1, kv, hd)
+    if use_rope:
+        sin, cos = rope_tables(pos[:, None], hd, cfg.rope_theta)
+        q, knew = apply_rope(q, sin, cos), apply_rope(knew, sin, cos)
+    return q, knew, vnew.reshape(b, 1, kv, hd)
+
+
+def attn_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
+                kind="attn", cross=False, use_rope=True):
+    """One-token decode.  x (B, 1, D); cache_k/v (B, Smax, KV, hd);
+    pos (B,) position of the new token.
+
+    Self-attention writes the new K/V rows into ``cache_k`` /
+    ``cache_v`` at ``pos`` in place (a row whose position is past the
+    cache is dropped, as the reference's scatter drops it) and attends
+    causally, within the window for ``"local"``; ``cross`` attends to
+    the whole cache and writes nothing (its K/V projections are not
+    computed).  Returns ``(out, cache_k, cache_v)``."""
+    b = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if cross:
+        q = (x @ p["wq"] + p["bq"] if "bq" in p else x @ p["wq"]).reshape(
+            b, 1, kv, h // kv, hd)
+        if use_rope:
+            sin, cos = rope_tables(pos[:, None], hd, cfg.rope_theta)
+            q = apply_rope(q, sin, cos)
+    else:
+        q, knew, vnew = decode_qkv(p, x, pos, cfg, use_rope)
+        write_rows(cache_k, knew[:, 0], pos)
+        write_rows(cache_v, vnew[:, 0], pos)
     smax = cache_k.shape[1]
-    # rows of distinct batch elements: no duplicate index; a position
-    # past the cache rewrites the last row with its own value
-    idx_b = torch.arange(b, device=x.device)
-    posc = pos.long().clamp(max=smax - 1)
-    keep = (pos < smax)[:, None, None]
-    for cache, new in ((cache_k, knew), (cache_v, vnew)):
-        cache[idx_b, posc] = torch.where(keep, new[:, 0].to(cache.dtype),
-                                         cache[idx_b, posc])
     kv_pos = torch.arange(smax, device=x.device)[None, :]
-    mask = kv_pos <= pos[:, None]
+    if cross:
+        mask = torch.ones((b, smax), dtype=torch.bool, device=x.device)
+    else:
+        mask = kv_pos <= pos[:, None]
+    if kind == "local" and cfg.window:
+        mask = mask & (kv_pos > pos[:, None] - cfg.window)
     if smax > 8192:
         out = _decode_attend_chunked(q, cache_k, cache_v, mask)
     else:

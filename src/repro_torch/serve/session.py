@@ -1,7 +1,10 @@
 """Deterministic batched serving session (Pot × decoding), after
 ``repro.serve.session``.
 
-Model math runs through ``models.lm.decode_step``; the *shared serving
+Model math runs through ``models.lm.decode_step`` over the cache
+``models.lm.init_cache`` builds for any of the ten architectures (a
+whisper session decodes against zero cross-attention rows, as the
+reference's does); the *shared serving
 state* — a paged metadata store of (page, row) entries, one page range
 per decode slot, and its page versions — is managed as preordered
 transactions: each decode step, every active slot's page-append is a

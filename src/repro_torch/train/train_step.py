@@ -25,7 +25,11 @@ Parameters are float32 master weights; the model casts them to bf16 at
 use.  A step returns ``(new_state, loss)`` and leaves the state it was
 given as it was.  The optimizer is AdamW or Adafactor.  The reference's
 sharding hooks (``prof``, ``grad_specs``) are identities on one card and
-are left out, as is the encoder (whisper; ROADMAP queue 1 item 12).
+are left out.  Training covers the ``"attn"`` layers with a dense MLP
+(stablelm, qwen1.5, starcoder2, internvl2's backbone); the local,
+mamba and RG-LRU kinds, MoE and the encoder (whisper's ``frames``)
+serve but do not train yet (ROADMAP queue 1 item 12.8), and both step
+builders raise ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -54,6 +58,19 @@ class TrainState:
 def _unknown(optimizer) -> ValueError:
     return ValueError(f"optimizer must be 'adamw' or 'adafactor', got "
                       f"{optimizer!r}")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a model the training path does
+    not cover yet."""
+    other = sorted(set(cfg.pattern) - {"attn"})
+    what = ([f"{k!r} layers" for k in other]
+            + ["MoE layers"] * bool(cfg.n_experts)
+            + ["the encoder"] * bool(cfg.encoder_layers))
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: training through {', '.join(what)} is not ported "
+            f"yet (ROADMAP queue 1 item 12.8)")
 
 
 def _optimizer(optimizer: str, lr, wd):
@@ -143,6 +160,7 @@ def make_train_step(cfg: ModelConfig, *, optimizer="adamw",
                     chunk=0, remat=True, lr=1e-3, wd=0.01):
     """A train step ``step(state, batch) -> (state', loss)``.  mode:
     ``"baseline"`` | ``"pot"``."""
+    check_trainable(cfg)
     upd = _optimizer(optimizer, lr, wd)
     if mode not in ("baseline", "pot"):
         raise ValueError(f"mode must be 'baseline' or 'pot', got {mode!r}")
@@ -183,6 +201,7 @@ def make_pot_dp_step(cfg: ModelConfig, group=None, *, optimizer="adamw",
     reduction, divided by the rank count, and every rank applies the
     same fast-mode commit, with ``gv`` and ``step`` + 1.  The weights are
     replicated."""
+    check_trainable(cfg)
     upd = _optimizer(optimizer, lr, wd)
     n_shards, rank = ring_position(group)
     loss = partial(loss_fn, cfg=cfg, remat=remat)

@@ -157,19 +157,40 @@ def test_decode_steps_teacher_forced_match_reference(arch):
         assert tlog.shape == (b, 1, cfg.padded_vocab)
         np.testing.assert_allclose(_f32(tlog), _f32(jlog), **TOL)
         pos = pos + 1
+    tcache = convert.lm_cache_to_numpy(tcache, cfg)
     for name in ("k", "v"):
-        np.testing.assert_allclose(_f32(tcache[name]),
+        np.testing.assert_allclose(tcache["0"][name],
                                    _f32(jcache["0"][name]), **TOL)
 
 
 @pytest.mark.parametrize("arch", ["gemma3_27b", "mamba2_370m",
                                   "deepseek_moe_16b", "whisper_medium"])
 def test_unported_decode_paths_raise(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_cache(cfg, 2, 8, device="cpu")
+    """The four families whose decode raised ``NotImplementedError``
+    until their layer kinds were ported: ``init_cache`` now builds the
+    reference's cache (through ``convert.lm_cache_to_numpy``: structure,
+    shapes, zeros) and one decode step from it matches the reference's
+    (whisper against its zero cross rows, as both sessions decode); only
+    a layer kind neither package knows raises."""
+    cfg, ref, port = _params(arch, seed=2)
+    b, smax = 2, 24
+    tcache = lm.init_cache(cfg, b, smax, device="cpu")
+    jcache = ref_lm.init_cache(cfg, b, smax, SMOKE)
+    as_ref = convert.lm_cache_to_numpy(tcache, cfg)
+    assert jax.tree.structure(as_ref) == jax.tree.structure(jcache)
+    for a, c in zip(jax.tree.leaves(as_ref), jax.tree.leaves(jcache)):
+        assert a.shape == c.shape and not a.any()
+    tok = np.random.default_rng(2).integers(0, cfg.vocab, (b, 1)).astype(
+        np.int32)
+    pos = np.array([0, 5], np.int32)
+    jlog, _ = ref_lm.decode_step(ref, jcache, jnp.asarray(tok),
+                                 jnp.asarray(pos), cfg, SMOKE, unroll=True)
+    tlog, _ = lm.decode_step(port, tcache, torch.from_numpy(tok),
+                             torch.from_numpy(pos), cfg)
+    np.testing.assert_allclose(_f32(tlog), _f32(jlog), **TOL)
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        lm.init_cache(dataclasses.replace(cfg, pattern=("conv",)), b, smax,
+                      device="cpu")
 
 
 def test_init_params_shapes_and_distributions():
