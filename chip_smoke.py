@@ -74,14 +74,16 @@ Phases, each printing its own lines:
 2c. (run after 2b) both fused-AdamW kernels against their plain versions on
    the card, bitwise on p, m, v (and abort), at the training slice's
    leaves: the embedding (100,352 x 5,120), an MLP weight (5,120 x
-   13,824) and a norm (5,120), with g in float32 and in bf16; the
+   13,824), a norm (5,120) and, since phase 17 trains it,
+   deepseek-moe-16b's (64, 2,048, 1,408) expert weight, with g in
+   float32 and in bf16; the
    speculative kernel at the MLP weight's shape with versions that are
    stale, fresh, and 2^24 + 1 against rv = 2^24 (fresh in float32).
    Their times (bare launch into given outputs, and through the
    functional wrapper), the plain version's, one ``torch._fused_adamw_``
    call on the same leaf (a yardstick the port never calls) and the
-   bound (bytes over the memory rate); at the w1 leaf with g float32
-   also the bare kernel and ``torch._fused_adamw_`` called in turns,
+   bound (bytes over the memory rate); at the w1 and expert leaves with
+   g float32 also the bare kernel and ``torch._fused_adamw_`` in turns,
    25 calls each, each call between its own CUDA events (medians);
 8. training at full width: stablelm-12b cut to 4 layers (widths
    untouched), float32 master weights from a seeded generator on the
@@ -206,7 +208,32 @@ Phases, each printing its own lines:
    depth, rounds about 0.3 from float32 on both paths: the bf16 decode
    is held to twice ``lm.forward``'s own distance, as phase 7 holds
    its decode; a MoE model's check runs under a capacity no expert
-   fills, see ``family_prefill``);
+   fills, see ``family_prefill``); whisper's encoder computes in bf16
+   whatever its weights' dtype (as the reference's), so 16c holds its
+   output card against CPU within the same tolerance and feeds the
+   card's to both float32 decoders;
+17. (run after 15) training through the other layer kinds at full
+   width, one family at a time, float32 master weights from SEED on the
+   card, ``make_train_step(mode="pot", n_microbatches=2)``:
+   recurrentgemma-9b cut to one pattern group and its 2-layer tail
+   (3.09e9 parameters, Adafactor, 2 x 4,096 tokens: the banded local
+   attention), mamba2-370m whole (AdamW, 8 x 1,024), deepseek-moe-16b
+   cut to 2 layers (1.60e9 parameters, AdamW, 8 x 512) and
+   whisper-medium whole (AdamW, 8 x 448 tokens over 1,504 seeded stub
+   frames).  Each: 3 steps twice from one seed, losses and every state
+   leaf bitwise equal, losses finite, the fused AdamW kernel launched
+   once per leaf per step (none under Adafactor); ms per step, tokens/s
+   and peak memory.  Then one Adafactor step of recurrentgemma (its
+   phase cut) and of deepseek (2 layers: the (2, 64, 2,048, 1,408)
+   expert stacks hold 3.7e8 elements, so they are clipped group by
+   group) in float32 (``C`` set to float32 in the port's model
+   modules) on the card and on the CPU from the same weights, 2 x 64
+   tokens: the loss within rtol 1e-5, the gradients, the statistics
+   and the new parameters within 1e-4 in relative L2 per leaf, the
+   CPU tests' bound (the parameters of a leaf with a gradient column
+   the two give more than 1e-3 apart, a cancellation both optimizers
+   normalise to an O(1) update, are held through their gradients and
+   statistics; ``tests/test_torch_train_kinds.py``);
 10b. (run last) each engine pipelined: ``run_stream`` at
    ``pipeline_depth=2`` over the first 256 rows of the stream's first
    three batches on the card, equal to the same engine's serial run on the card
@@ -222,6 +249,7 @@ non-zero; without a CUDA device it exits 1 at once and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -286,6 +314,19 @@ PREFILL_DECODE = 16
 FAMILY_HELD_PROMPT = 512
 FAMILY_HELD_DECODE = 4
 MATMUL_N = 8192         # the bf16 rate prefill bounds are taken against
+# phase 17: training through the other kinds, (arch, layers kept (None:
+# all), optimizer, tokens a row, rows: 2 microbatches)
+TRAIN_FAMILIES = (
+    # one pattern group + its 2-layer tail (3.09e9 parameters); with
+    # AdamW its 28 B a parameter would need about 86 GB.  4,096 tokens,
+    # over the 2,048 window: the banded form
+    ("recurrentgemma-9b", 5, "adafactor", 4096, 2),
+    ("mamba2-370m", None, "adamw", 1024, 8),      # 4 SSD chunks of 256
+    ("deepseek-moe-16b", 2, "adamw", 512, 8),     # 1.60e9 parameters
+    ("whisper-medium", None, "adamw", 448, 8),    # over 1,504 stub frames
+)
+FAMILY_TRAIN_STEPS = 3
+FAMILY_HELD_SEQ = 64    # phase 17's Adafactor step on the card and the CPU
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 x
@@ -1486,8 +1527,12 @@ def phase_adamw():
     hp = fused_adamw.hp_vector(7, lr=TRAIN_LR, b1=0.9, b2=0.999, eps=1e-8,
                                wd=0.1, device="cuda")
     step7 = torch.tensor(7.0, device="cuda")
+    moe_cfg = get_config("deepseek-moe-16b")
     shapes = {"embed": (cfg.padded_vocab, cfg.d_model),
-              "w1": (cfg.d_model, cfg.d_ff), "norm": (cfg.d_model,)}
+              "w1": (cfg.d_model, cfg.d_ff), "norm": (cfg.d_model,),
+              # phase 17's largest leaf of a new kind: an (E, D, F)
+              # expert weight of deepseek-moe-16b
+              "expert": (moe_cfg.n_experts, moe_cfg.d_model, moe_cfg.d_ff)}
     out = {}
     for leaf, shape in shapes.items():
         n = int(np.prod(shape))
@@ -1527,7 +1572,7 @@ def phase_adamw():
             out[(leaf, gname)] = dict(
                 max_abs_err=err, ms=t, plain_ms=t_plain, bound_ms=bound_ms,
                 bound_by="bytes", library_ms=t_lib, wrapper_ms=t_wrap)
-            if leaf == "w1" and g is g32:
+            if leaf in ("w1", "expert") and g is g32:
                 kernel_ms, lib_ms = in_turns((
                     lambda: adamw_bare(entry, (hp, p, m, v, g, *got), n),
                     lambda: torch._fused_adamw_(
@@ -1535,7 +1580,7 @@ def phase_adamw():
                         lr=TRAIN_LR, beta1=0.9, beta2=0.999,
                         weight_decay=0.1, eps=1e-8, amsgrad=False,
                         maximize=False)), ADAMW_TURNS)
-                log(f"  w1 in turns, {ADAMW_TURNS} calls each: kernel "
+                log(f"  {leaf} in turns, {ADAMW_TURNS} calls each: kernel "
                     f"median {np.median(kernel_ms):.4f} ms (min "
                     f"{min(kernel_ms):.4f}, max {max(kernel_ms):.4f}), "
                     f"torch._fused_adamw_ median {np.median(lib_ms):.4f} "
@@ -1928,7 +1973,7 @@ def phase_dp_train(trained):
         for _ in range(2):
             state = init_state(lm.init_params(
                 torch.Generator(device="cuda").manual_seed(SEED), cfg,
-                dtype=torch.float32), optimizer, n_slots=len(cfg.pattern))
+                dtype=torch.float32), optimizer, cfg=cfg)
             losses, times = [], []
             for i in range(TRAIN_STEPS):
                 batch = batch_at(dcfg, i, device="cuda")
@@ -2659,9 +2704,8 @@ def family_held(cfg, params, prompt: int, n_layers: int):
         1, cfg.n_frames, cfg.d_model)).astype(np.float32))
         if cfg.encoder_layers else None)
 
-    def run(p, device):
-        enc = (lm.encode(p, frames.to(device), cut)
-               if frames is not None else None)
+    def run(p, device, enc):
+        enc = None if enc is None else enc.to(device)
         logits, cache = lm.prefill(p, tokens[:, :prompt].to(device), cut,
                                    max_seq=prompt + FAMILY_HELD_DECODE,
                                    enc=enc)
@@ -2675,12 +2719,24 @@ def family_held(cfg, params, prompt: int, n_layers: int):
             outs.append(out.cpu())
         return torch.cat(outs, 1), held
 
+    # the encoder computes in bf16 whatever its weights' dtype (as the
+    # reference's does): its two outputs are held within TOL, and both
+    # decoders read the card's
+    enc_line, enc = "", None
+    if frames is not None:
+        enc = lm.encode(card, frames.to("cuda"), cut).cpu()
+        enc_cpu = lm.encode(lm.params_to(card, "cpu"), frames, cut)
+        torch.testing.assert_close(enc.float(), enc_cpu.float(), rtol=TOL,
+                                   atol=TOL)
+        diff = float((enc.float() - enc_cpu.float()).abs().max())
+        enc_line = f"; the bf16 encoder's output max |card - CPU| {diff:.3e}"
+        del enc_cpu
     t0 = time.perf_counter()
-    got = run(lm.params_to(card, "cuda", torch.float32), "cuda")
+    got = run(lm.params_to(card, "cuda", torch.float32), "cuda", enc)
     t_card = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    exp = run(lm.params_to(card, "cpu", torch.float32), "cpu")
+    exp = run(lm.params_to(card, "cpu", torch.float32), "cpu", enc)
     t_cpu = time.perf_counter() - t0
     assert torch.isfinite(exp[0]).all()
     torch.testing.assert_close(got[0], exp[0], rtol=TOL, atol=TOL)
@@ -2692,7 +2748,8 @@ def family_held(cfg, params, prompt: int, n_layers: int):
         f"1 x {prompt} tokens + {FAMILY_HELD_DECODE} decode steps; card "
         f"{t_card:.1f} s, CPU {t_cpu:.1f} s): logits max |card - CPU| "
         f"{float((got[0] - exp[0]).abs().max()):.3e}, prefill cache "
-        f"({len(exp[1])} tensors) {worst:.3e}, within rtol = atol = {TOL}")
+        f"({len(exp[1])} tensors) {worst:.3e}, within rtol = atol = {TOL}"
+        f"{enc_line}")
 
 
 def phase_families() -> int:
@@ -2726,6 +2783,220 @@ def phase_families() -> int:
         run = family_prefill(cfg, params, prompt, rate)
         family_consistency(params, prompt, run)   # params now float32
         del params, run
+        torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def port_compute_dtype(dtype):
+    """``C`` of the port's model modules set to ``dtype`` within the
+    block (they read it at each call): a float32 check of the training
+    path free of bf16 rounding."""
+    from repro_torch.models import blocks, lm, moe, rglru, ssm
+    mods = (blocks, lm, ssm, rglru, moe)
+    saved = [m.C for m in mods]
+    for m in mods:
+        m.C = dtype
+    try:
+        yield
+    finally:
+        for m, c in zip(mods, saved):
+            m.C = c
+
+
+def family_batch(cfg, seq, rows, step, device="cuda"):
+    """Data step ``step`` of ``rows`` x ``seq`` tokens, and whisper's
+    stub frames drawn with numpy from the step (as ``launch/train.py``
+    draws them)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                global_batch=rows), step, device=device)
+    if cfg.encoder_layers:
+        frames = np.random.default_rng([7, step]).standard_normal(
+            (rows, cfg.n_frames, cfg.d_model), np.float32)
+        batch["frames"] = torch.from_numpy(frames).to(device)
+    return batch
+
+
+def leaf_distance(got, exp) -> tuple[float, bool]:
+    """(||got - exp|| / ||exp||, whether a column (last axis) of the two
+    lies more than 1e-3 apart in relative L2: a cancellation), in
+    float64 on the card, ``exp`` (a CPU tensor) copied there once."""
+    import torch
+    b = exp.to("cuda")
+    a = got.reshape(-1, got.shape[-1])
+    b = b.reshape(-1, b.shape[-1])
+    num = den = torch.zeros(a.shape[1], dtype=torch.float64, device="cuda")
+    rows = max(1, (1 << 26) // a.shape[1])
+    for s in range(0, a.shape[0], rows):
+        x, y = a[s:s + rows].double(), b[s:s + rows].double()
+        num = num + ((x - y) ** 2).sum(0)
+        den = den + (y * y).sum(0)
+    total = float(den.sum()) ** 0.5
+    col = bool((num.sqrt() > 1e-3 * den.sqrt().clamp(min=1e-30)).any())
+    return float(num.sum()) ** 0.5 / (total if total else 1.0), col
+
+
+def family_train_runs(cfg, optimizer, seq, rows):
+    """Phase 17: FAMILY_TRAIN_STEPS pot steps twice from SEED on the
+    card.  Returns the fused AdamW kernel's launches."""
+    import torch
+    from repro_torch.kernels import fused_adamw
+    from repro_torch.models import lm
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    step_fn = make_train_step(cfg, optimizer=optimizer, mode="pot",
+                              n_microbatches=2, lr=TRAIN_LR, wd=TRAIN_WD)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fused_adamw.reset_launches()
+    runs = []
+    for _ in range(2):
+        params = lm.init_params(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg,
+            dtype=torch.float32)
+        before = tree_digest(params)
+        state = init_state(params, optimizer, cfg=cfg)
+        del params
+        losses, times = [], []
+        for i in range(FAMILY_TRAIN_STEPS):
+            batch = family_batch(cfg, seq, rows, i)
+            (state, loss), t = timed(lambda: step_fn(state, batch))
+            losses.append(loss)
+            times.append(t)
+        opt = ([state.opt["m"], state.opt["v"]] if optimizer == "adamw"
+               else [state.opt["stats"]])
+        runs.append(dict(losses=torch.stack(losses).cpu(), times=times,
+                         before=before,
+                         after=tree_digest([state.params, *opt]),
+                         counters=(int(state.gv), int(state.step))))
+        n_leaves = len(leaves(state.params))
+        n = sum(t.numel() for t in leaves(state.params))
+        del state, opt
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = fused_adamw.LAUNCHES["fused_adamw"]
+    a, b = runs
+    assert torch.equal(a["losses"], b["losses"]), "losses differ"
+    assert a["after"] == b["after"], "the runs' states differ"
+    assert torch.isfinite(a["losses"]).all(), a["losses"]
+    assert all(x != y for x, y in zip(a["before"], a["after"])), \
+        "a parameter did not move"
+    assert a["counters"] == (FAMILY_TRAIN_STEPS,) * 2, a["counters"]
+    want = 2 * FAMILY_TRAIN_STEPS * n_leaves if optimizer == "adamw" else 0
+    assert launches == want, (launches, want)
+    ms = float(np.median(a["times"] + b["times"])) * 1e3
+    tokens = rows * seq
+    digest = hashlib.sha256(str(a["after"]).encode()).hexdigest()[:16]
+    log(f"  train ({optimizer}, {n:,} float32 parameters in {n_leaves} "
+        f"leaves; pot, 2 microbatches of {rows // 2} x {seq} tokens"
+        f"{f' over {cfg.n_frames} frames' if cfg.encoder_layers else ''},"
+        f" {FAMILY_TRAIN_STEPS} steps x 2 runs): median {ms:.3f} ms per "
+        f"step (first {a['times'][0] * 1e3:.1f} ms), "
+        f"{tokens / ms * 1e3:.1f} tokens/s; peak allocated {peak:.2f} GB; "
+        f"fused_adamw launches {launches}; runs bitwise identical "
+        f"(digest {digest})")
+    log(f"    losses: {a['losses'].tolist()}")
+    return launches
+
+
+def family_adafactor_held(cfg):
+    """Phase 17: one Adafactor pot step (its gradients, then the update)
+    in float32 on the card and on the CPU from the same weights, held to
+    the CPU tests' bound."""
+    import torch
+    from functools import partial
+    from repro_torch.models import lm
+    from repro_torch.optim import adafactor, adafactor_update
+    from repro_torch.train import init_state, loss_fn, train_step
+    from repro_torch.tree import leaves, tree_map
+
+    params = lm.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 4), cfg,
+        dtype=torch.float32)
+    # the stacked leaves of the groups' slots the rule clips group by group
+    by_group = sum(adafactor._grouped((cfg.n_groups,) + tuple(t.shape))
+                   for layer in params["layers"][:len(cfg.pattern)]
+                   for t in leaves(layer))
+    host = tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(SEED + 4)
+    tokens = rng.integers(0, cfg.vocab, (2, FAMILY_HELD_SEQ + 1))
+    arrays = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    loss = partial(loss_fn, cfg=cfg, remat=False)
+    sources = {"cuda": params, "cpu": host}
+    del params, host
+    out = {}
+    with port_compute_dtype(torch.float32):
+        for device in ("cuda", "cpu"):
+            p = sources.pop(device)
+            batch = {k: torch.from_numpy(v.astype(np.int32)).to(device)
+                     for k, v in arrays.items()}
+            t0 = time.perf_counter()
+            value, grads = train_step._accumulate(loss, p, batch, 2)
+            state = init_state(p, "adafactor", cfg=cfg)
+            new, opt = adafactor_update(p, grads, state.opt, lr=TRAIN_LR)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            # the card's results stay on the card while the CPU runs
+            out[device] = (float(value), leaves(grads), leaves(new),
+                           leaves(opt["stats"]), time.perf_counter() - t0)
+            del p, grads, new, opt, state
+    (lc, gc, pc, sc, tc), (lh, gh, ph, sh, th) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(lc, lh, rtol=1e-5)
+    t0 = time.perf_counter()
+    dist_g = [leaf_distance(a, b) for a, b in zip(gc, gh)]
+    skip = {i for i, (_, col) in enumerate(dist_g) if col}
+    worst_g = max(d for d, _ in dist_g)
+    rel_p = [leaf_distance(a, b)[0] for a, b in zip(pc, ph)]
+    worst_p = max(r for i, r in enumerate(rel_p) if i not in skip)
+    worst_skip = max([rel_p[i] for i in skip], default=0.0)
+    worst_s = max(leaf_distance(a, b)[0] for a, b in zip(sc, sh))
+    t_cmp = time.perf_counter() - t0
+    assert max(worst_g, worst_p, worst_s) <= 1e-4, (worst_g, worst_p,
+                                                    worst_s)
+    log(f"  one Adafactor step in float32, card against CPU (2 x "
+        f"{FAMILY_HELD_SEQ} tokens; card {tc:.1f} s, CPU {th:.1f} s, the "
+        f"comparison {t_cmp:.1f} s): loss {lc:.7f} vs {lh:.7f} (|diff| "
+        f"{abs(lc - lh):.3e}); relative L2 at most: gradients "
+        f"{worst_g:.3e}, statistics {worst_s:.3e}, parameters "
+        f"{worst_p:.3e} (<= 1e-4) outside the {len(skip)} of {len(pc)} "
+        f"leaves with a gradient column the two give more than 1e-3 "
+        f"apart ({worst_skip:.3e} there, held through their gradients); "
+        f"{by_group} stacked leaves clipped group by group")
+    del out, gc, pc, sc, gh, ph, sh
+    torch.cuda.empty_cache()
+    return by_group
+
+
+def phase_train_families() -> int:
+    """Phase 17: training through the other layer kinds at full width.
+    Returns the fused AdamW kernel's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    launches = 0
+    for arch, n_layers, optimizer, seq, rows in TRAIN_FAMILIES:
+        full = get_config(arch)
+        cfg = (dataclasses.replace(full, n_layers=n_layers) if n_layers
+               else full)
+        assert lm.layer_kinds(cfg) == lm.layer_kinds(full)[:cfg.n_layers]
+        kinds = sorted(set(lm.layer_kinds(cfg)))
+        log(f"train family {cfg.name}: {cfg.n_layers} of {full.n_layers} "
+            f"layers ({', '.join(kinds)}"
+            f"{f'; tail {len(cfg.tail_pattern)}' if cfg.tail_pattern else ''}"
+            f"{f', {cfg.n_experts} experts top-{cfg.top_k}' if cfg.n_experts else ''}"
+            f"{f', encoder {cfg.encoder_layers} layers' if cfg.encoder_layers else ''}"
+            f"), d_model {cfg.d_model}")
+        if "local" in cfg.pattern:
+            from repro_torch.models import blocks
+            assert blocks.uses_banded("local", True, seq, cfg), seq
+        launches += family_train_runs(cfg, optimizer, seq, rows)
+        if arch in ("recurrentgemma-9b", "deepseek-moe-16b"):
+            by_group = family_adafactor_held(cfg)
+            assert by_group == (3 if cfg.n_experts else 0), by_group
         torch.cuda.empty_cache()
     return launches
 
@@ -2785,6 +3056,7 @@ def main() -> int:
     phase_legacy_scan(stream[0])
     phase_dp_train(trained)
     phase_ring()
+    launches["fused_adamw"] += phase_train_families()
     phase_engines(stream[0])
     phase_engines_pipelined(stream)
 

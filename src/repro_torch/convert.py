@@ -229,12 +229,21 @@ def lm_cache_to_numpy(cache: list, cfg: ModelConfig) -> dict:
     return tree
 
 
-def _tensors_like(like, src, device):
+def _tensors_like(like, src, device, path="stats"):
     """float32 tensors of ``src`` (numpy, nested dicts) in the structure
-    and key order of the port's tree ``like``."""
+    and key order of the port's tree ``like``; raises ``ValueError`` where
+    a key or a shape differs."""
     if isinstance(like, dict):
-        return {k: _tensors_like(v, src[k], device) for k, v in like.items()}
-    return torch.from_numpy(np.array(src, np.float32)).to(device)
+        if set(like) != set(src):
+            raise ValueError(f"{path}: keys {sorted(src)} where the port "
+                             f"holds {sorted(like)}")
+        return {k: _tensors_like(v, src[k], device, f"{path}/{k}")
+                for k, v in like.items()}
+    a = np.array(src, np.float32)
+    if a.shape != tuple(like.shape):
+        raise ValueError(f"{path}: shape {a.shape} where the port holds "
+                         f"{tuple(like.shape)}")
+    return torch.from_numpy(a).to(device)
 
 
 def train_state_from_numpy(tree, cfg: ModelConfig,
@@ -243,7 +252,9 @@ def train_state_from_numpy(tree, cfg: ModelConfig,
     mapping with its fields) as numpy: parameters and AdamW moments
     unstacked as :func:`lm_params_from_numpy` unstacks them and kept in
     float32; Adafactor's statistics (``opt["stats"]``) kept in their
-    stacked shapes, as the port's Adafactor holds them;
+    stacked shapes, the ``tail`` and ``enc_layers`` ones too, as the
+    port's Adafactor holds them (a missing or extra statistic, or one of
+    another shape, raises ``ValueError``);
     ``opt["step"]``, ``gv`` and ``step`` as 0-d int32 tensors."""
     f32 = lambda t: lm_params_from_numpy(t, cfg, device, torch.float32)
     i32 = lambda a: torch.tensor(int(np.asarray(a)), dtype=torch.int32,
@@ -251,7 +262,8 @@ def train_state_from_numpy(tree, cfg: ModelConfig,
     opt = _field_tree(tree, "opt")
     params = f32(_field_tree(tree, "params"))
     if "stats" in opt:
-        like = adafactor_init(params, len(cfg.pattern))["stats"]
+        like = adafactor_init(params, len(cfg.pattern),
+                              len(cfg.tail_pattern))["stats"]
         state = {"stats": _tensors_like(like, opt["stats"], device)}
     else:
         state = {"m": f32(opt["m"]), "v": f32(opt["v"])}

@@ -72,6 +72,10 @@ def main() -> None:
 
     for i in range(start, args.steps):
         batch = batch_at(dcfg, i, device=args.device)
+        if cfg.encoder_layers:   # whisper's stub audio frontend
+            frames = np.random.default_rng([7, i]).standard_normal(
+                (args.batch, cfg.n_frames, cfg.d_model), np.float32)
+            batch["frames"] = torch.from_numpy(frames).to(args.device)
         if cfg.n_patches:   # internvl2's stub vision frontend
             patches = np.random.default_rng([8, i]).standard_normal(
                 (args.batch, cfg.n_patches, cfg.d_model), np.float32)

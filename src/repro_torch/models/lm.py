@@ -23,11 +23,11 @@ Cache entries by kind: ``{"k", "v"}`` (B, rows, KV, hd) for attention
 also hold ``{"xk", "xv"}`` (B, n_frames, KV, hd), the cross-attention
 rows.  The decode step updates the cache in place.
 
-``forward`` computes in bf16 from whatever weights it is given (the
-training path's float32 masters are cast at use); ``encode``,
-``prefill`` and ``decode_step`` compute in the parameters' own dtype:
-bf16 for the serving path's weights, float32 for a check of the math
-free of bf16 rounding.
+``forward`` and ``encode`` compute in bf16 from whatever weights they
+are given (the training path's float32 masters are cast at use), as the
+reference's do; ``prefill`` and ``decode_step`` compute in the
+parameters' own dtype: bf16 for the serving path's weights, float32 for
+a check of the math free of bf16 rounding.
 """
 
 from __future__ import annotations
@@ -224,15 +224,17 @@ def _embed(params, tokens, prefix_embeds, dtype):
     return x
 
 
-def encode(params, frames, cfg: ModelConfig):
-    """The whisper encoder over stub frame embeddings (B, F, D), in the
-    parameters' dtype: bidirectional attention layers, then
-    ``enc_norm``."""
-    dtype = params["enc_norm"].dtype
+def encode(params, frames, cfg: ModelConfig, *, remat=False):
+    """The whisper encoder over stub frame embeddings (B, F, D):
+    bidirectional attention layers, then ``enc_norm``.  It computes in
+    ``C`` (bf16) whatever its weights' dtype and returns that dtype, as
+    the reference's does (the training path's float32 masters are cast
+    at use); ``remat`` as in :func:`trunk`."""
     b, f, _ = frames.shape
-    x = trunk(params, frames.to(dtype), cfg, positions=_positions(
-        b, f, frames.device), causal=False, layers_key="enc_layers")
-    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+    x = trunk(params, frames.to(C), cfg, positions=_positions(
+        b, f, frames.device), causal=False, remat=remat,
+        layers_key="enc_layers")
+    return rmsnorm(x, params["enc_norm"].to(x.dtype), cfg.norm_eps)
 
 
 def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
@@ -313,6 +315,31 @@ def _local_decode(p, x, c, pos, cfg: ModelConfig):
     return out.reshape(b, 1, h * hd) @ p["wo"]
 
 
+def decode_layer(p, x, c, kind: str, pos, cfg: ModelConfig):
+    """One layer of a decode step in the parameters' dtype: x (B, 1, D)
+    -> the layer's output, its cache ``c`` updated in place."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if kind == "attn":
+        h, _, _ = blocks.attn_decode(p["attn"], h, c["k"], c["v"], pos, cfg)
+    elif kind == "local":
+        h = _local_decode(p["attn"], h, c, pos, cfg)
+    else:
+        step = ssm.mamba_decode if kind == "mamba" else rglru.rglru_decode
+        h, new = step(p["mixer"], h, c, cfg)
+        c.update(new)
+    x = x + h
+    if "xattn" in p:
+        h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
+        h, _, _ = blocks.attn_decode(p["xattn"], h, c["xk"], c["xv"], pos,
+                                     cfg, cross=True, use_rope=False)
+        x = x + h
+    if "mlp" in p or "moe" in p:
+        h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        x = x + (moe.moe_apply(p["moe"], h, cfg) if "moe" in p
+                 else blocks.mlp_apply(p["mlp"], h, cfg))
+    return x
+
+
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
     """One decode step in the parameters' dtype.  tokens (B, 1) int, pos
     (B,) int (position of the new token).  Returns (logits (B, 1,
@@ -320,25 +347,5 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
     x = params["embed"][tokens]                              # (B, 1, D)
     for p, kind, c in zip(params["layers"], layer_kinds(cfg), cache,
                           strict=True):
-        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-        if kind == "attn":
-            h, _, _ = blocks.attn_decode(p["attn"], h, c["k"], c["v"], pos,
-                                         cfg)
-        elif kind == "local":
-            h = _local_decode(p["attn"], h, c, pos, cfg)
-        else:
-            step = ssm.mamba_decode if kind == "mamba" else rglru.rglru_decode
-            h, new = step(p["mixer"], h, c, cfg)
-            c.update(new)
-        x = x + h
-        if "xattn" in p:
-            h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
-            h, _, _ = blocks.attn_decode(p["xattn"], h, c["xk"], c["xv"],
-                                         pos, cfg, cross=True,
-                                         use_rope=False)
-            x = x + h
-        if "mlp" in p or "moe" in p:
-            h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-            x = x + (moe.moe_apply(p["moe"], h, cfg) if "moe" in p
-                     else blocks.mlp_apply(p["mlp"], h, cfg))
+        x = decode_layer(p, x, c, kind, pos, cfg)
     return _logits(params, x, cfg), cache

@@ -25,11 +25,12 @@ Parameters are float32 master weights; the model casts them to bf16 at
 use.  A step returns ``(new_state, loss)`` and leaves the state it was
 given as it was.  The optimizer is AdamW or Adafactor.  The reference's
 sharding hooks (``prof``, ``grad_specs``) are identities on one card and
-are left out.  Training covers the ``"attn"`` layers with a dense MLP
-(stablelm, qwen1.5, starcoder2, internvl2's backbone); the local,
-mamba and RG-LRU kinds, MoE and the encoder (whisper's ``frames``)
-serve but do not train yet (ROADMAP queue 1 item 12.8), and both step
-builders raise ``NotImplementedError`` for them.
+are left out.  ``make_train_step`` and ``make_pot_dp_step`` train all
+ten architectures: every layer kind (``"attn"``, ``"local"``,
+``"mamba"``, ``"rglru"``), dense and MoE MLPs, internvl2's ``patches``
+and whisper's ``frames`` (through ``lm.encode``).  A MoE layer takes
+its capacity from the tokens of each call, as the reference's does, so
+the microbatch split and a DP rank's slice move its drops.
 """
 
 from __future__ import annotations
@@ -60,19 +61,6 @@ def _unknown(optimizer) -> ValueError:
                       f"{optimizer!r}")
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a model the training path does
-    not cover yet."""
-    other = sorted(set(cfg.pattern) - {"attn"})
-    what = ([f"{k!r} layers" for k in other]
-            + ["MoE layers"] * bool(cfg.n_experts)
-            + ["the encoder"] * bool(cfg.encoder_layers))
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: training through {', '.join(what)} is not ported "
-            f"yet (ROADMAP queue 1 item 12.8)")
-
-
 def _optimizer(optimizer: str, lr, wd):
     """The update function and its hyperparameters: Adafactor takes the
     learning rate only, as in the reference."""
@@ -83,14 +71,18 @@ def _optimizer(optimizer: str, lr, wd):
     raise _unknown(optimizer)
 
 
-def init_state(params, optimizer="adamw", *, n_slots: int = 1) -> TrainState:
+def init_state(params, optimizer="adamw", *,
+               cfg: ModelConfig | None = None) -> TrainState:
     """A fresh state: step 0, gv 0 and zero optimizer state.  Adafactor
-    keeps its statistics in the reference's stacked shapes, over the
-    model's ``n_slots = len(cfg.pattern)`` pattern slots."""
+    keeps its statistics in the reference's tree and stacked shapes,
+    laid out by ``cfg``'s pattern slots and tail (one slot and no tail
+    without a ``cfg``: a tree of plain leaves)."""
     if optimizer == "adamw":
         opt = adamw_init(params)
     elif optimizer == "adafactor":
-        opt = adafactor_init(params, n_slots)
+        layout = () if cfg is None else (len(cfg.pattern),
+                                         len(cfg.tail_pattern))
+        opt = adafactor_init(params, *layout)
     else:
         raise _unknown(optimizer)
     zero = lambda: torch.zeros((), dtype=torch.int32,
@@ -100,10 +92,14 @@ def init_state(params, optimizer="adamw", *, n_slots: int = 1) -> TrainState:
 
 def loss_fn(params, batch, cfg: ModelConfig, *, chunk=0, remat=True):
     """Next-token cross-entropy, averaged over the labels >= 0.  batch:
-    {tokens (B, S), labels (B, S)} plus optional {patches} (internvl2)."""
+    {tokens (B, S), labels (B, S)} plus optional {frames} (whisper, the
+    encoder's input) and {patches} (internvl2)."""
+    enc = None
+    if cfg.encoder_layers:
+        enc = lm.encode(params, batch["frames"], cfg, remat=remat)
     logits = lm.forward(params, batch["tokens"], cfg,
-                        prefix_embeds=batch.get("patches"), chunk=chunk,
-                        remat=remat)
+                        prefix_embeds=batch.get("patches"), enc=enc,
+                        chunk=chunk, remat=remat)
     labels = batch["labels"]
     off = logits.shape[1] - labels.shape[1]
     logits = logits[:, off:].float()
@@ -160,7 +156,6 @@ def make_train_step(cfg: ModelConfig, *, optimizer="adamw",
                     chunk=0, remat=True, lr=1e-3, wd=0.01):
     """A train step ``step(state, batch) -> (state', loss)``.  mode:
     ``"baseline"`` | ``"pot"``."""
-    check_trainable(cfg)
     upd = _optimizer(optimizer, lr, wd)
     if mode not in ("baseline", "pot"):
         raise ValueError(f"mode must be 'baseline' or 'pot', got {mode!r}")
@@ -201,7 +196,6 @@ def make_pot_dp_step(cfg: ModelConfig, group=None, *, optimizer="adamw",
     reduction, divided by the rank count, and every rank applies the
     same fast-mode commit, with ``gv`` and ``step`` + 1.  The weights are
     replicated."""
-    check_trainable(cfg)
     upd = _optimizer(optimizer, lr, wd)
     n_shards, rank = ring_position(group)
     loss = partial(loss_fn, cfg=cfg, remat=remat)

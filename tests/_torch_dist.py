@@ -86,3 +86,40 @@ def dp_worker(rank, world, init, states, out, steps, lr):
         if rank == 0:
             np.savez(f"{out}.{optimizer}.npz", **arrays)
     dist.destroy_process_group()
+
+
+def dp_kinds_worker(rank, world, init, cases, out, lr):
+    """For each case of ``cases`` (the path of a pickled dict: (arch,
+    optimizer) -> (the reference's initial state, the global batch), as
+    numpy), one ``make_pot_dp_step`` step of 2 microbatches a rank on the
+    smoke configuration, twice from that state, with ``C`` set to
+    float32 in the port's model modules; rank r writes both runs' state
+    leaves, counters and losses to ``{out}.{arch}.{optimizer}.{r}.npz``."""
+    import pickle
+
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import blocks, lm, moe, rglru, ssm
+    from repro_torch.train import make_pot_dp_step
+    from repro_torch.tree import leaves
+    for m in (blocks, lm, ssm, rglru, moe):
+        m.C = torch.float32
+    _join(rank, world, init)
+    with open(cases, "rb") as f:
+        cases = pickle.load(f)
+    for (arch, optimizer), (initial, batch) in cases.items():
+        cfg = get_smoke_config(arch)
+        step = make_pot_dp_step(cfg, optimizer=optimizer, n_microbatches=2,
+                                lr=lr)
+        arrays = {}
+        for r in range(2):
+            state = convert.train_state_from_numpy(initial, cfg, device="cpu")
+            state, loss = step(state, {k: torch.from_numpy(v)
+                                       for k, v in batch.items()})
+            arrays[f"loss_{r}"] = loss.numpy()
+            arrays[f"counters_{r}"] = np.asarray(
+                [int(state.gv), int(state.step)])
+            for j, t in enumerate(leaves([state.params, state.opt])):
+                arrays[f"leaf_{r}_{j}"] = t.numpy()
+        np.savez(f"{out}.{arch}.{optimizer}.{rank}.npz", **arrays)
+    dist.destroy_process_group()

@@ -8,8 +8,9 @@ validation strip on both routes and a pipelined PCC stream against the
 CPU's, the sharded store's kernels at W_s = 4,096 (their OR over shards
 against the dense kernels), sharded sessions and a replica's failover on
 the card, the serving
-session on the card against the CPU's, and a Pot train step on the card
-run twice, bitwise.
+session on the card against the CPU's, a Pot train step on the card
+run twice, bitwise, and the DP step of the other layer kinds (the AdamW
+kernel at their leaves) twice, bitwise.
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
 false (decided inside the fixture, not at import).  Run on a GPU machine
 with
@@ -39,7 +40,7 @@ from repro_torch.kernels import (conflict, fused_adamw, kv_commit, ops, ref,
                                  validate)
 from repro_torch.models import lm
 from repro_torch.serve.session import Session
-from repro_torch.train import init_state, make_train_step
+from repro_torch.train import init_state, make_pot_dp_step, make_train_step
 from repro_torch.tree import leaves
 
 pytestmark = pytest.mark.cuda
@@ -520,6 +521,14 @@ def _adamw_inputs(n, gdtype, device, seed):
 @pytest.mark.parametrize("shape", [
     (1,), (3,), (1001, 333), (5120,), (5120, 13824),
     ((1 << 29) + 3,),   # 2.1 GB a tensor: 64-bit offsets, ragged tail
+    # the other layer kinds' leaves at full width: mamba2-370m's
+    # per-head vectors, conv and in-projection; recurrentgemma-9b's
+    # RG-LRU gates and lam, and conv; deepseek-moe-16b's (E, D, F)
+    # expert weights and router; whisper-medium's encoder MLP
+    (32,), (4, 2304), (1024, 4384), (4096,), (4, 4096),
+    (64, 2048, 1408), (2048, 64), (1024, 4096),
+    # sizes that are not a multiple of 4: the scalar tail
+    (33,), (5, 2303), (7, 9, 13),
 ])
 @pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
 def test_adamw_kernel_equals_plain(cuda, shape, gdtype):
@@ -603,3 +612,50 @@ def test_pot_train_step_on_card_twice_bitwise(cuda):
     assert torch.equal(la, lb) and torch.isfinite(la).all()
     assert all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
     assert int(a.gv) == int(a.step) == 3
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-370m",
+                                  "deepseek-moe-16b", "whisper-medium"])
+def test_dp_step_of_other_kinds_on_card(cuda, arch):
+    """The DP step's commit at one rank on the card for the other layer
+    kinds (smoke configurations, AdamW): two runs of two steps from one
+    seed bitwise equal, bitwise the pot step, and the fused AdamW kernel
+    launched once per leaf per step (the per-head vectors, the conv and
+    gate weights, the expert stacks, the encoder)."""
+    cfg = get_smoke_config(arch)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+
+    def batch(i):
+        b = batch_at(dcfg, i, device=cuda)
+        if cfg.encoder_layers:
+            b["frames"] = torch.from_numpy(np.random.default_rng(i).normal(
+                size=(4, cfg.n_frames, cfg.d_model)).astype(np.float32)
+            ).to(cuda)
+        return b
+
+    kw = dict(n_microbatches=2, remat=False)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for step in (make_pot_dp_step(cfg, **kw), make_pot_dp_step(cfg, **kw),
+                     make_train_step(cfg, mode="pot", **kw)):
+            fused_adamw.reset_launches()
+            state = init_state(lm.init_params(
+                torch.Generator(device=cuda).manual_seed(0), cfg,
+                dtype=torch.float32))
+            losses = []
+            for i in range(2):
+                state, loss = step(state, batch(i))
+                losses.append(loss)
+            runs.append((state, torch.stack(losses),
+                         fused_adamw.LAUNCHES["fused_adamw"]))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    a, la, na = runs[0]
+    assert na == 2 * len(leaves(a.params))
+    assert torch.isfinite(la).all() and int(a.gv) == 2
+    for b, lb, nb in runs[1:]:
+        assert nb == na and torch.equal(la, lb)
+        assert all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+

@@ -41,8 +41,7 @@ from repro_torch.ckpt import checkpoint as ck
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, batch_at, stream
 from repro_torch.models import blocks, lm
-from repro_torch.train import (init_state, loss_fn, make_pot_dp_step,
-                               make_train_step)
+from repro_torch.train import init_state, loss_fn, make_train_step
 from repro_torch.tree import leaves, unflatten
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -374,34 +373,6 @@ def test_restart_reproduces_run_bitwise(tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(leaves(straight),
                                                  leaves(s)))
     assert torch.equal(torch.stack(losses[2:]), torch.stack(again))
-
-
-@pytest.mark.parametrize("arch", ["gemma3_27b", "mamba2_370m",
-                                  "deepseek_moe_16b", "whisper_medium"])
-def test_unported_kinds_raise(arch):
-    """Training through the local, mamba and RG-LRU kinds, MoE and the
-    encoder waits for ROADMAP queue 1 item 12.8: both step builders
-    raise, naming it.  The model itself now runs: float32 masters of
-    these kinds give the reference's logits in bf16 (whisper with its
-    encoder's output)."""
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="item 12.8"):
-        make_train_step(cfg, mode="pot")
-    with pytest.raises(NotImplementedError, match="item 12.8"):
-        make_pot_dp_step(cfg)
-    rcfg, ref, port = _params(arch, seed=6)
-    batch = _batch(rcfg, np.random.default_rng(6))
-    jenc = tenc = None
-    if cfg.encoder_layers:
-        frames = np.random.default_rng(7).normal(
-            size=(2, cfg.n_frames, cfg.d_model)).astype(np.float32)
-        jenc = ref_lm.encode(ref, jnp.asarray(frames), rcfg, SMOKE)
-        tenc = torch.from_numpy(np.asarray(jenc, np.float32))
-    jlog = ref_lm.forward(ref, jnp.asarray(batch["tokens"]), rcfg, SMOKE,
-                          enc=jenc, unroll=True)
-    tlog = lm.forward(port, torch.from_numpy(batch["tokens"]), cfg, enc=tenc)
-    assert tlog.dtype == torch.bfloat16 and tlog.shape == jlog.shape
-    np.testing.assert_allclose(_f32(tlog), _f32(jlog), **TOL)
 
 
 def test_unported_options_raise():
