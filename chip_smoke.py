@@ -234,6 +234,23 @@ Phases, each printing its own lines:
    the two give more than 1e-3 apart, a cancellation both optimizers
    normalise to an O(1) update, are held through their gradients and
    statistics; ``tests/test_torch_train_kinds.py``);
+18. (run after 17) the layout and the dry run, about 10 s: a. a
+   world-1 NCCL group, ``launch.mesh.make_host_mesh()`` over the card,
+   and every leaf of deepseek-moe-16b cut to 2 layers (phase 17's cell,
+   full width, bf16) distributed by its spec under a single-pod
+   ``Profile`` on a (1, 1) ("data", "model") mesh: each local shard
+   bitwise the tensor, ``cons`` the identity there; b. for phase 17's
+   deepseek-moe-16b cell (2 layers, 8 x 512) and phase 8's stablelm-12b
+   cell (4 layers, 8 x 128), the dry run's counts on the ``meta``
+   device against the card: the meta FLOP count equal to
+   ``FlopCounterMode``'s count of one real forward and backward on the
+   card, exactly; the dry run's predicted per-card peak within [0.67,
+   1.5] x the ``torch.cuda.max_memory_allocated()`` of one pot training
+   step (2 microbatches, AdamW; above what the phase found allocated);
+   and the roofline bound of ``launch/roofline_model.py`` at the H100's
+   constants on one card no greater than the measured step time (the
+   median of 3 steps after one), printed as the step-to-bound ratio,
+   with the fused AdamW kernel's launches of those steps counted;
 10b. (run last) each engine pipelined: ``run_stream`` at
    ``pipeline_depth=2`` over the first 256 rows of the stream's first
    three batches on the card, equal to the same engine's serial run on the card
@@ -327,6 +344,11 @@ TRAIN_FAMILIES = (
 )
 FAMILY_TRAIN_STEPS = 3
 FAMILY_HELD_SEQ = 64    # phase 17's Adafactor step on the card and the CPU
+# phase 18: the dry run held to the card, (arch, layers kept, rows,
+# tokens a row): phase 17's deepseek cell and phase 8's stablelm cell
+DRYRUN_CELLS = (("deepseek-moe-16b", 2, 8, 512), ("stablelm-12b", 4, 8, 128))
+DRYRUN_STEPS = 3        # timed steps after one untimed
+PEAK_RANGE = (0.67, 1.5)  # predicted / measured peak per card
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 x
@@ -3001,6 +3023,146 @@ def phase_train_families() -> int:
     return launches
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_layout():
+    """Phase 18a: a world-1 NCCL group, the host mesh over the card, and
+    phase 17's deepseek cell's leaves laid out by their specs."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.runtime.shardings import Profile, cons, to_placements
+    from repro_torch.tree import flatten_up_to, leaves
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        host = make_host_mesh()
+        assert host.mesh_dim_names == ("data",) and host.size() == 1
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        arch, n_layers, _, _ = DRYRUN_CELLS[0]
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        params = lm.init_params(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg)
+        prof = Profile(mesh=mesh)
+        specs = flatten_up_to(params, lm.param_specs(cfg, prof))
+        n = 0
+        for t, spec in zip(leaves(params), specs, strict=True):
+            d = distribute_tensor(t, mesh, to_placements(spec, mesh, t.ndim))
+            local = d.to_local()
+            assert local.shape == t.shape and torch.equal(
+                local.view(torch.int16), t.view(torch.int16)), spec
+            assert cons(t, spec, prof) is t
+            n += t.numel()
+        log(f"layout: world-1 NCCL group, host mesh {host.mesh_dim_names} "
+            f"of {host.size()} card; {cfg.name} cut to {cfg.n_layers} "
+            f"layers, {len(specs)} leaves ({n:,} bf16 parameters) "
+            f"distributed by their specs on the (1, 1) (data, model) mesh: "
+            f"every local shard bitwise the tensor, cons the identity "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del params, d, local
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun() -> int:
+    """Phase 18b: the dry run's meta counts against the card.  Returns
+    the fused AdamW kernel's launches of the timed steps."""
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import fused_adamw
+    from repro_torch.launch import dryrun, roofline_model
+    from repro_torch.models import lm
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    one_card = roofline_model.Machine(
+        peak_flops=roofline_model.H100_BF16_MATMUL,
+        hbm_bw=roofline_model.H100_HBM_BW, link_bw=float("inf"), chips=1,
+        model=1, data=1)
+    sizes = {"data": 1, "model": 1}
+    launches = 0
+    for arch, n_layers, rows, seq in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        shape = ShapeSpec(f"{rows}x{seq}", "train", seq, rows)
+        meta = lm.init_params(None, cfg, dtype=torch.float32, device="meta")
+        counted = dryrun.count_cell(cfg, shape, meta, n_mb=TRAIN_MICRO)
+        prof = dryrun.profile_for(sizes, shape)
+        predicted = dryrun.memory_per_card(
+            cfg, shape, meta, lm.param_specs(cfg, prof), prof, sizes,
+            counted, optimizer="adamw", n_mb=TRAIN_MICRO)["peak_bytes"]
+        t_meta = time.perf_counter() - t0
+
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        params = lm.init_params(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg,
+            dtype=torch.float32)
+        on_card = dryrun.count_cell(cfg, shape, params, n_mb=TRAIN_MICRO)
+        assert on_card["flops"] == counted["flops"], (on_card, counted)
+        step_fn = make_train_step(cfg, mode="pot",
+                                  n_microbatches=TRAIN_MICRO, lr=TRAIN_LR,
+                                  wd=TRAIN_WD)
+        state = init_state(params)
+        del params
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=rows)
+        batches = [batch_at(dcfg, i, device="cuda")
+                   for i in range(DRYRUN_STEPS + 1)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_adamw.reset_launches()
+        times = []
+        for i, batch in enumerate(batches):
+            (state, loss), t = timed(lambda: step_fn(state, batch))
+            if i:
+                times.append(t)
+        n_launches = fused_adamw.LAUNCHES["fused_adamw"]
+        n_leaves = len(leaves(state.params))
+        assert n_launches == len(batches) * n_leaves, n_launches
+        assert torch.isfinite(loss), loss
+        measured = torch.cuda.max_memory_allocated() - base
+        ratio = predicted / measured
+        assert PEAK_RANGE[0] <= ratio <= PEAK_RANGE[1], (predicted, measured)
+        step_s = float(np.median(times))
+        terms = roofline_model.terms(
+            cfg, shape, {"flops": counted["flops"], "bytes": counted["bytes"],
+                         "collectives": {"total": 0.0}},
+            optimizer="adamw", n_mb=TRAIN_MICRO, machine=one_card)
+        assert terms["bound_s"] <= step_s, (terms, step_s)
+        launches += n_launches
+        log(f"dry run {cfg.name} cut to {cfg.n_layers} layers, {rows} x "
+            f"{seq} tokens (pot, {TRAIN_MICRO} microbatches, AdamW; meta "
+            f"{t_meta:.1f} s): FLOPs meta {counted['flops']:.6e} == card "
+            f"{on_card['flops']:.6e}; peak per card predicted "
+            f"{predicted / 1e9:.3f} GB, measured {measured / 1e9:.3f} GB "
+            f"(ratio {ratio:.3f}, in [{PEAK_RANGE[0]}, {PEAK_RANGE[1]}]); "
+            f"step median {step_s * 1e3:.3f} ms of {DRYRUN_STEPS} against "
+            f"the roofline bound {terms['bound_s'] * 1e3:.3f} ms "
+            f"({terms['bottleneck']}: compute {terms['compute_s'] * 1e3:.3f}"
+            f" ms, modeled memory {terms['memory_s'] * 1e3:.3f} ms, "
+            f"dispatch bytes {terms['memory_s_hlo_bound'] * 1e3:.3f} ms): "
+            f"step-to-bound {step_s / terms['bound_s']:.3f}; fused_adamw "
+            f"launches {n_launches} ({time.perf_counter() - t0:.1f} s)")
+        del state, batches
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3057,6 +3219,8 @@ def main() -> int:
     phase_dp_train(trained)
     phase_ring()
     launches["fused_adamw"] += phase_train_families()
+    phase_layout()
+    launches["fused_adamw"] += phase_dryrun()
     phase_engines(stream[0])
     phase_engines_pipelined(stream)
 

@@ -23,7 +23,9 @@ sequences; it returns the K/V rows that prefill caches, and takes a
 cross-attention source), grouped decode attention (whole-cache and
 chunked online-softmax forms; ``attn_decode`` also for the local window
 and for cross-attention) and the SwiGLU / GELU MLP.  The reference's
-sharding constraints are identities on one card and are left out.
+sharding constraints are identities on one card and are left out; the
+weights' spec trees (``attn_specs``, ``mlp_specs``) are kept for the
+dry run and for laying the weights out over a mesh.
 """
 
 from __future__ import annotations
@@ -35,16 +37,27 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.shardings import Profile
 
 C = torch.bfloat16  # compute dtype; the serving path stores its weights in it
 NEG = -1e30
+
+
+class MetaDraws:
+    """Stands in for the generator of a build on the ``meta`` device
+    (``lm.init_params(..., device="meta")``): every weight gets its shape
+    and dtype and no values."""
+
+    device = torch.device("meta")
 
 
 def _normal(gen: torch.Generator, shape, std: float,
             dtype=C) -> torch.Tensor:
     """N(0, std²) drawn in float32 on the generator's device, then stored
     in ``dtype`` at once (no float32 copy of a bf16 weight outlives the
-    call)."""
+    call); on the ``meta`` device an empty tensor of the shape."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     return (torch.randn(shape, generator=gen, device=gen.device,
                         dtype=torch.float32) * std).to(dtype)
 
@@ -252,6 +265,15 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig, dtype=C,
     return p
 
 
+def attn_specs(cfg: ModelConfig, prof: Profile, cross=False) -> dict:
+    """The spec tree of :func:`init_attn`'s weights."""
+    p = {"wq": prof.w_in(), "wk": prof.w_in(), "wv": prof.w_in(),
+         "wo": prof.w_out()}
+    if cfg.qkv_bias and not cross:
+        p.update(bq=prof.bias_ff(), bk=prof.bias_ff(), bv=prof.bias_ff())
+    return p
+
+
 def uses_banded(kind: str, causal: bool, s: int, cfg: ModelConfig) -> bool:
     """The reference's choice of :func:`attend_window_banded`: a causal
     ``"local"`` layer over more than one window, in whole windows."""
@@ -385,6 +407,13 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff=None,
                 "w2": _normal(gen, (f, d), std, dtype)}
     return {"w1": _normal(gen, (d, f), std, dtype),
             "w2": _normal(gen, (f, d), std, dtype)}
+
+
+def mlp_specs(cfg: ModelConfig, prof: Profile) -> dict:
+    """The spec tree of :func:`init_mlp`'s weights."""
+    if cfg.mlp == "swiglu":
+        return {"w1": prof.w_in(), "w3": prof.w_in(), "w2": prof.w_out()}
+    return {"w1": prof.w_in(), "w2": prof.w_out()}
 
 
 def mlp_apply(p, x, cfg: ModelConfig):

@@ -23,6 +23,13 @@ Cache entries by kind: ``{"k", "v"}`` (B, rows, KV, hd) for attention
 also hold ``{"xk", "xv"}`` (B, n_frames, KV, hd), the cross-attention
 rows.  The decode step updates the cache in place.
 
+``param_specs`` and ``cache_specs`` give the spec trees of both in the
+same layout (``runtime/shardings.py``): the dry run's and a mesh's
+layout; the model functions themselves take no profile, since every
+sharding constraint is the identity on one card.
+``init_params(None, cfg, device="meta")`` builds the parameter tree's
+shapes with no values.
+
 ``forward`` and ``encode`` compute in bf16 from whatever weights they
 are given (the training path's float32 masters are cast at use), as the
 reference's do; ``prefill`` and ``decode_step`` compute in the
@@ -39,8 +46,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks, moe, rglru, ssm
-from repro_torch.models.blocks import C, _cast, _normal, rmsnorm
+from repro_torch.models.blocks import C, MetaDraws, _cast, _normal, rmsnorm
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.shardings import P, Profile
 from repro_torch.tree import tree_map
 
 KINDS = ("attn", "local", "mamba", "rglru")
@@ -77,13 +85,21 @@ def _layer_init(gen, kind: str, cfg: ModelConfig, dtype, cross: bool):
     return p
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig,
-                dtype=C) -> dict:
+def init_params(generator: torch.Generator | None, cfg: ModelConfig,
+                dtype=C, device=None) -> dict:
     """Random parameters with the reference's shapes and distributions,
     drawn from ``generator`` on its device and stored in ``dtype``: bf16
     for serving, float32 for the master weights of training.  The values
     are the port's own: a torch generator does not reproduce the
-    reference's threefry draws."""
+    reference's threefry draws.  ``device="meta"`` builds the same tree
+    on the ``meta`` device with no generator: shapes and dtypes, no
+    values (the dry run's parameters)."""
+    if device is not None:
+        if torch.device(device).type != "meta":
+            raise ValueError(f"device= builds on 'meta' only, got {device!r}"
+                             "; draw on another device through its "
+                             "generator")
+        generator = MetaDraws()
     d = cfg.d_model
     params = {"embed": _normal(generator, (cfg.padded_vocab, d), 0.02,
                                dtype),
@@ -102,6 +118,44 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
         params["enc_norm"] = torch.ones((d,), dtype=dtype,
                                         device=generator.device)
     return params
+
+
+def _slot_specs(kind: str, cfg: ModelConfig, prof: Profile,
+                cross: bool) -> dict:
+    """The spec tree of one layer's weights (:func:`_layer_init`)."""
+    p = {"ln1": prof.vector()}
+    if kind in ("attn", "local"):
+        p["attn"] = blocks.attn_specs(cfg, prof)
+    elif kind == "mamba":
+        p["mixer"] = ssm.mamba_specs(cfg, prof)
+    else:
+        p["mixer"] = rglru.rglru_specs(cfg, prof)
+    if cross:
+        p["ln_x"] = prof.vector()
+        p["xattn"] = blocks.attn_specs(cfg, prof, cross=True)
+    if kind != "mamba" and cfg.mlp != "none":
+        p["ln2"] = prof.vector()
+        p["moe" if cfg.n_experts else "mlp"] = (
+            moe.moe_specs(cfg, prof) if cfg.n_experts
+            else blocks.mlp_specs(cfg, prof))
+    return p
+
+
+def param_specs(cfg: ModelConfig, prof: Profile) -> dict:
+    """The spec tree of :func:`init_params`, in its layout: one spec dict
+    per layer under ``layers`` (the reference stacks each pattern slot
+    and adds a leading ``None`` for the group axis)."""
+    cross = cfg.encoder_layers > 0
+    specs = {"embed": prof.embed(), "final_norm": prof.vector()}
+    if not cfg.tie_embeddings:
+        specs["head"] = prof.head()
+    specs["layers"] = [_slot_specs(kind, cfg, prof, cross)
+                       for kind in layer_kinds(cfg)]
+    if cross:
+        specs["enc_layers"] = [_slot_specs("attn", cfg, prof, False)
+                               for _ in range(cfg.encoder_layers)]
+        specs["enc_norm"] = prof.vector()
+    return specs
 
 
 def params_to(params, device, dtype=None):
@@ -293,6 +347,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
             c.update(xk=zeros(cfg.n_frames), xv=zeros(cfg.n_frames))
         cache.append(c)
     return cache
+
+
+def cache_specs(cfg: ModelConfig, prof: Profile, model_size: int) -> list:
+    """The spec tree of :func:`init_cache`: one dict per layer.  K/V rows
+    by ``prof.cache_kv`` (heads over the model axis where they divide
+    it, else the rows), recurrent states over the batch."""
+    kvspec = prof.cache_kv(cfg.n_kv_heads, model_size)
+    specs = []
+    for kind in layer_kinds(cfg):
+        if kind in ("attn", "local"):
+            c = {"k": kvspec, "v": kvspec}
+        elif kind == "mamba":
+            c = {"state": P(prof.da, prof.ma, None, None),
+                 "conv": P(prof.da, None, None)}
+        else:
+            c = {"state": P(prof.da, prof.ma),
+                 "conv": P(prof.da, None, prof.ma)}
+        if cfg.encoder_layers:
+            c.update(xk=kvspec, xv=kvspec)
+        specs.append(c)
+    return specs
 
 
 # ------------------------------------------------------------------ decode

@@ -26,8 +26,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.blocks import C, _cast, _normal, init_mlp, mlp_apply
+from repro_torch.models.blocks import (C, _cast, _normal, init_mlp,
+                                       mlp_apply, mlp_specs)
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.shardings import P, Profile
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype=C) -> dict:
@@ -43,6 +45,18 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype=C) -> dict:
     if cfg.dense_residual:
         p["residual"] = init_mlp(gen, cfg, d_ff=cfg.residual_d_ff,
                                  dtype=dtype)
+    return p
+
+
+def moe_specs(cfg: ModelConfig, prof: Profile) -> dict:
+    """The spec tree of :func:`init_moe`'s weights."""
+    p = {"router": P(None, None),
+         "w1": prof.experts_in(), "w3": prof.experts_in(),
+         "w2": prof.experts_out()}
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_specs(cfg, prof)
+    if cfg.dense_residual:
+        p["residual"] = mlp_specs(cfg, prof)
     return p
 
 

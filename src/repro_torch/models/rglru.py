@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.models.blocks import C, _cast, _normal
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import _causal_conv, conv_tail
+from repro_torch.runtime.shardings import Profile
 
 _C_GATE = 8.0
 CONV_WIDTH = 4
@@ -41,6 +42,16 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig, dtype=C) -> dict:
         "w_r": vec(0.0), "b_r": vec(0.0), "w_i": vec(0.0), "b_i": vec(0.0),
         "lam": vec(0.5),
         "w_out": _normal(gen, (w, d), std, dtype),
+    }
+
+
+def rglru_specs(cfg: ModelConfig, prof: Profile) -> dict:
+    """The spec tree of :func:`init_rglru`'s weights."""
+    return {
+        "w_x": prof.w_in(), "w_gate": prof.w_in(), "conv": prof.vector(),
+        "w_r": prof.bias_ff(), "b_r": prof.bias_ff(),
+        "w_i": prof.bias_ff(), "b_i": prof.bias_ff(),
+        "lam": prof.bias_ff(), "w_out": prof.w_out(),
     }
 
 

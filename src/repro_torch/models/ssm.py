@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.blocks import C, _cast, _normal, rmsnorm
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.shardings import Profile
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype=C) -> dict:
@@ -39,6 +40,16 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype=C) -> dict:
         "d_skip": vec(torch.ones(h)),
         "norm": vec(torch.ones(di)),
         "w_out": _normal(gen, (di, d), std, dtype),
+    }
+
+
+def mamba_specs(cfg: ModelConfig, prof: Profile) -> dict:
+    """The spec tree of :func:`init_mamba`'s weights."""
+    return {
+        "w_in": prof.w_in(), "conv": prof.vector(),
+        "a_log": prof.vector(), "dt_bias": prof.vector(),
+        "d_skip": prof.vector(), "norm": prof.bias_ff(),
+        "w_out": prof.w_out(),
     }
 
 

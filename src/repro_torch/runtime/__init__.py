@@ -1,2 +1,2 @@
-"""Runtime services of the port: the elastic worker pool and the
-straggler model."""
+"""Runtime services of the port: the elastic worker pool, the straggler
+model and the sharding profiles."""

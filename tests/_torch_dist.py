@@ -123,3 +123,67 @@ def dp_kinds_worker(rank, world, init, cases, out, lr):
                 arrays[f"leaf_{r}_{j}"] = t.numpy()
         np.savez(f"{out}.{arch}.{optimizer}.{rank}.npz", **arrays)
     dist.destroy_process_group()
+
+
+def placement_worker(rank, world, init, out):
+    """Every leaf of stablelm-smoke's and deepseek-moe-smoke's parameters
+    (seeded draws, the same on both ranks) distributed by its spec under
+    a single-pod profile on (1, 2) and (2, 1) meshes and under a
+    multi-pod ``pure_dp`` profile on (1, 2, 1) (tuple entries), each
+    gathered back and checked bitwise, its local shard's shape checked
+    against ``local_shape``; ``cons`` to a replicated spec gathers too.
+    Rank r writes the file ``{out}.{r}`` when all hold."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.runtime.shardings import (P, Profile, cons,
+                                               local_shape, to_placements)
+    from repro_torch.tree import flatten_up_to, leaves
+    _join(rank, world, init)
+    meshes = [((1, 2), ("data", "model"), {}),
+              ((2, 1), ("data", "model"), {}),
+              ((1, 2, 1), ("pod", "data", "model"),
+               {"data_axes": ("pod", "data"), "pure_dp": True})]
+    for arch in ("stablelm-12b", "deepseek-moe-16b"):
+        cfg = get_smoke_config(arch)
+        params = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                                dtype=torch.float32)
+        for shape, names, kw in meshes:
+            mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+            prof = Profile(mesh=mesh, **kw)
+            sizes = dict(zip(names, shape))
+            specs = flatten_up_to(params, lm.param_specs(cfg, prof))
+            for t, spec in zip(leaves(params), specs, strict=True):
+                if kw.get("pure_dp") and spec.count("model") and any(
+                        isinstance(e, tuple) for e in spec):
+                    continue   # pure_dp experts: the model axis twice
+                d = distribute_tensor(t, mesh,
+                                      to_placements(spec, mesh, t.ndim))
+                if rank == 0:
+                    assert tuple(d.to_local().shape) == local_shape(
+                        tuple(t.shape), spec, sizes), (spec, t.shape)
+                assert torch.equal(d.full_tensor(), t), (arch, spec)
+                back = cons(d, P(), prof)
+                assert torch.equal(back.to_local(), t), (arch, spec)
+    open(f"{out}.{rank}", "w").close()
+    dist.destroy_process_group()
+
+
+def mesh_worker(rank, world, init, out):
+    """``make_host_mesh`` over the gloo world: one ``"data"`` axis of
+    ``world`` ranks that an all-reduce over its group spans.  Rank r
+    writes the file ``{out}.{r}`` when all hold."""
+    from repro_torch.launch.mesh import make_host_mesh
+    _join(rank, world, init)
+    mesh = make_host_mesh(device_type="cpu")
+    assert mesh.mesh_dim_names == ("data",) and mesh.size() == world
+    assert mesh.get_local_rank("data") == rank
+    x = torch.tensor([rank + 1.0])
+    dist.all_reduce(x, group=mesh.get_group("data"))
+    assert x.item() == world * (world + 1) / 2
+    named = make_host_mesh(world, axis="shard", device_type="cpu")
+    assert named.mesh_dim_names == ("shard",)
+    open(f"{out}.{rank}", "w").close()
+    dist.destroy_process_group()

@@ -49,7 +49,11 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "repro_torch.kernels.validate, repro_torch.core.occ, "
         "repro_torch.core.pogl, repro_torch.core.destm, "
         "repro_torch.core.legacy_scan, repro_torch.launch.train_lm, "
-        "repro_torch.runtime.straggler\n"
+        "repro_torch.runtime.straggler, repro_torch.runtime.shardings, "
+        "repro_torch.launch.mesh, repro_torch.launch.roofline_model, "
+        "repro_torch.launch.dryrun, repro_torch.examples.quickstart, "
+        "repro_torch.examples.det_replay_debug, "
+        "repro_torch.examples.serve_batch, repro_torch.examples.failover\n"
         "from repro_torch.configs import get_config\n"
         "get_config('stablelm-12b')\n"
         "from repro_torch.kernels import _build\n"
