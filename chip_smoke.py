@@ -19,15 +19,23 @@ Phases, each printing its own lines:
    same table (``torch.matmul`` of 0/1 bf16 masks, a yardstick the port
    never calls) and its bound (the larger of bytes over the memory rate
    and word pairs over the binary MMA's measured rate; also at the
-   int32 rate);
+   int32 rate), and each pair strip's time device only as well
+   (``graph_time_ms``);
 2b. the ordered paged-commit kernel against its plain version on the
    card, bitwise, at the serving session's own shape (128 pages of
-   16 x 8 float32, 8 slots) and at a paged KV cache the size of the
+   16 x 8 float32, 8 slots), at a paged KV cache the size of the
    ``decode_32k`` shape (128 slots x 32,768 positions in pages of 16,
-   stablelm's KV width 8 x 160, bf16: 262,144 pages, 10.7 GB); inputs
-   repeat pages and (page, row) pairs, skip slots and carry page ids
-   past either end.  Its time, the plain version's, the functional
-   wrapper's clone, the bound and an empty launch's time (the floor);
+   stablelm's KV width 8 x 160, bf16: 262,144 pages, 10.7 GB) and at
+   the session's store at that size (262,144 pages of 16 x 8 float32,
+   134 MB, 128 slots); inputs repeat pages and (page, row) pairs, skip
+   slots and carry page ids past either end.  Its time at the host's
+   rate (CUDA events around a Python loop of 200 calls) and device only
+   (200 calls captured in a CUDA graph and replayed between events:
+   ``graph_time_ms``), through the wrapper and as a bare launch; an
+   empty launch's both ways (the floor); the plain version's, a clone
+   of the store, the bound; and at the 134 MB store one serving step's
+   commit on the functional route (clone, then commit) against the
+   in-place one;
 3. the main path: a stream of STAMP vacation-high batches
    (``vacation_like(update_pct=90)``, 1,048,576 objects as in
    ``-r1048576``, K = 1024 transactions, 8 lanes; the first 2 of the 4
@@ -60,7 +68,10 @@ Phases, each printing its own lines:
    weights from a seeded generator (all 40 layers, about 24 GB), 32
    greedy steps, then again with the requests' arrivals reversed: tokens
    and ``fingerprint()`` must be bitwise equal, and the commit kernel's
-   launches in this phase > 0.  Median ms per step, tokens/s, the
+   launches in this phase > 0, and each session's ``page_meta`` and
+   ``page_versions`` the same tensors at the same addresses after its
+   steps (committed in place; so in phase 16a).  Median ms per step,
+   tokens/s, the
    weight-streaming bound and the peak memory allocated;
 7. the same configuration cut to 2 layers (widths untouched), its
    weights copied to the CPU: ``decode_step`` teacher-forced on the card
@@ -79,8 +90,8 @@ Phases, each printing its own lines:
    float32 and in bf16; the
    speculative kernel at the MLP weight's shape with versions that are
    stale, fresh, and 2^24 + 1 against rv = 2^24 (fresh in float32).
-   Their times (bare launch into given outputs, and through the
-   functional wrapper), the plain version's, one ``torch._fused_adamw_``
+   Their times (bare launch into given outputs, also device only by
+   ``graph_time_ms``, and through the functional wrapper), the plain version's, one ``torch._fused_adamw_``
    call on the same leaf (a yardstick the port never calls) and the
    bound (bytes over the memory rate); at the w1 and expert leaves with
    g float32 also the bare kernel and ``torch._fused_adamw_`` in turns,
@@ -109,8 +120,8 @@ Phases, each printing its own lines:
    against its plain version bitwise (also at (1000, 32768) and the
    ragged (1000, 32767)), against an independent answer from the pair
    kernel (the OR over the 512 writers' columns of its strip), and the
-   entry point on the card against the CPU.  Its time, the plain
-   version's, one ``torch.matmul`` of 0/1 bf16 masks (a yardstick the
+   entry point on the card against the CPU.  Its time (also device
+   only), the plain version's, one ``torch.matmul`` of 0/1 bf16 masks (a yardstick the
    port never calls) and the bound;
 2e. (run after 2) the cross-batch validation strip of a pipelined
    drain: the read sets of phase 3's second batch against the dirty
@@ -147,7 +158,7 @@ Phases, each printing its own lines:
    kernel's (256, 1024) and (1024, 256) strips, the delta kernel at the
    median live count of the sharded run's full-rung rounds, the
    validation kernel on (1024, 4,096) (phase 2e's dirty set); one
-   shard's time, the 8 launches', the dense call's, the plain version's
+   shard's time (also device only), the 8 launches', the dense call's, the plain version's
    and the bound; then one pipelined sharded drain (depth 2, budget
    1,024) of two batches of phase 3b's journal, equal to phase 3b's
    depth-0 serve in every trace field but ``spec_*`` and in the replay
@@ -259,7 +270,12 @@ Phases, each printing its own lines:
    repeated serial run was cut to keep the run near 600 s), ``spec_*``
    per batch and the launches.
 
-The second line from the end is the kernels' JSON summary and the last
+The CPU runs that phases 4, 10 and 10b hold the card to are made from
+the seeds alone by the CPU referee, a child process started first that
+never sees the card (REFEREE_THREADS torch threads, on cores the
+host-bound card phases leave idle); phase 9's launcher is a process
+started beside phase 12.  The third line from the end gives each
+phase's wall seconds, the second the kernels' JSON summary and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device it exits 1 at once and prints no result.
 """
@@ -292,7 +308,8 @@ N_BATCHES = 4
 MAIN_PATH_BATCHES = 2   # phases 3-4's cut; phase 3b serves all N_BATCHES
 SEED = 0
 VALIDATE_PREFIX = 512   # phase 2d: the writers of the validated set
-ENGINES_CPU_K = 256     # phase 10: the card against the CPU at this K
+ENGINES_CPU_K = 256     # phase 10b: rows of each batch, card and CPU
+REFEREE_THREADS = 4     # torch threads of the CPU referee (see main)
 
 SERVE_ARCH = "stablelm-12b"
 SERVE_SLOTS = 8
@@ -380,6 +397,25 @@ def log(*parts):
     print(*parts, flush=True)
 
 
+PHASE_SECONDS: dict[str, float] = {}
+
+
+def clocked(fn):
+    """``fn`` that adds its wall seconds to ``PHASE_SECONDS[fn.__name__]``
+    (a phase that another calls is counted in its caller as well)."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            PHASE_SECONDS[fn.__name__] = PHASE_SECONDS.get(
+                fn.__name__, 0.0) + time.perf_counter() - t0
+    return run
+
+
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
     for _ in range(warmup):
@@ -392,6 +428,43 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(fn, calls: int = 200, replays: int = 5) -> float:
+    """The card's own ms for one call of ``fn``: ``calls`` calls captured
+    in one CUDA graph, replayed ``replays`` times between CUDA events, so
+    the host's rate of enqueueing (the wrapper's Python and the launch
+    call) does not enter.  Warmed up on the capture stream, so scratch
+    kept per stream exists before the capture."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def host_rate_ms(fn, calls: int = 200, rounds: int = 5) -> tuple[float,
+                                                                  float]:
+    """The best and the worst of ``rounds`` readings of
+    :func:`cuda_time_ms` over ``calls`` calls: where the host enqueues
+    more slowly than the card runs, that is the host's rate, and it
+    varies with what else runs on the machine's CPU."""
+    ms = sorted(cuda_time_ms(fn, calls) for _ in range(rounds))
+    return ms[0], ms[-1]
 
 
 def in_turns(fns, calls: int, warmup: int = 2) -> list[list[float]]:
@@ -511,25 +584,29 @@ def phase_kernels(batch):
         assert torch.equal(out, (am @ bm.T) > 0.5), "pair != dense matmul"
         ms = cuda_time_ms(lambda: conflict.conflict_matrix_bits_pair(a, b),
                           50)
+        dev_ms = graph_time_ms(
+            lambda: conflict.conflict_matrix_bits_pair(a, b), 50)
         plain_ms = cuda_time_ms(
             lambda: ref.conflict_matrix_bits_pair_ref(a, b), 2, 1)
         lib_ms = cuda_time_ms(lambda: am @ bm.T, 10)
         m, n = a.shape[0], b.shape[0]
         bnd = bound(m * n * w, (m + n) * w * 4 + m * n, mma_rate)
         int32 = bound(m * n * w, (m + n) * w * 4 + m * n)[0]
-        log(f"pair ({m}, {n}) x W={w}: kernel {ms:.4f} ms, plain "
+        log(f"pair ({m}, {n}) x W={w}: kernel {ms:.4f} ms ({dev_ms:.4f} "
+            f"device only), plain "
             f"{plain_ms:.4f} ms, matmul {lib_ms:.4f} ms, bound "
             f"{bnd[0]:.4f} ms ({bnd[1]}; {int32:.4f} at the int32 rate), "
             f"launch plan {plan_line(conflict.launch_plan(m, n, w))}, "
             f"{int(out.sum())} conflicting pairs, bitwise equal")
-        timed_pair.append((ms, plain_ms, lib_ms, bnd))
+        timed_pair.append((ms, plain_ms, lib_ms, bnd, dev_ms))
     main = timed_pair[:2]
     results["conflict_matrix_bits_pair"] = dict(
         max_abs_err=err, ms=float(np.mean([t[0] for t in main])),
         plain_ms=float(np.mean([t[1] for t in main])),
         bound_ms=float(np.mean([t[3][0] for t in main])),
         bound_by=main[0][3][1],
-        library_ms=float(np.mean([t[2] for t in main])))
+        library_ms=float(np.mean([t[2] for t in main])),
+        device_ms=float(np.mean([t[4] for t in main])))
 
     # --- delta: the full rung at about half and a quarter of the rows
     # live; the summary line keeps the first
@@ -669,6 +746,55 @@ def run_stream(wls, device):
     return s, traces
 
 
+def stream_workloads():
+    """The main path's N_BATCHES batches and phase 5's extra one, made on
+    the CPU from SEED (alike in this process and in the CPU referee)."""
+    from repro_torch.core import workloads as W
+    return [W.vacation_like(n_txns=K, n_objects=N_OBJECTS, n_lanes=N_LANES,
+                            update_pct=90, seed=SEED + b, device="cpu")
+            for b in range(N_BATCHES + 1)]
+
+
+# --- the CPU referee: a child process that makes the CPU runs phases 4,
+# 10 and 10b hold the card to, from the seeds alone, on cores the card
+# phases leave idle (they are host-bound on one); numpy results only
+
+
+def referee_init():
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""     # it never sees the card
+    import torch
+    torch.set_num_threads(REFEREE_THREADS)
+    torch.use_deterministic_algorithms(True)
+
+
+def cpu_main_path():
+    """Phase 4's CPU run of the main path's stream."""
+    from repro_torch import convert
+    (s, traces), seconds = timed(lambda: run_stream(
+        stream_workloads()[:MAIN_PATH_BATCHES], "cpu"))
+    return dict(fingerprint=s.fingerprint(), replay_log=s.replay_log(),
+                traces=[convert.trace_to_numpy(t) for t in traces],
+                seconds=seconds)
+
+
+def cpu_engines():
+    """Phase 10's CPU runs: every engine on the first batch, name ->
+    (fingerprint, trace); and the seconds."""
+    from repro_torch import convert
+    from repro_torch.core.tstore import fingerprint
+    runs, seconds = timed(lambda: engine_runs(
+        stream_workloads()[0], "cpu")[0])
+    return {name: (fingerprint(r[0]), convert.trace_to_numpy(r[1]))
+            for name, r in runs.items()}, seconds
+
+
+def cpu_engines_pipelined():
+    """Phase 10b's CPU runs: each engine's stream at depth 2."""
+    batches, lanes = pipelined_stream(stream_workloads())
+    return {engine: engine_stream_run(engine, 2, "cpu", batches, lanes)
+            for engine in ("pcc", "pogl", "destm", "occ")}
+
+
 def phase_main_path(wls):
     import torch
     from repro_torch.kernels import conflict
@@ -691,22 +817,23 @@ def phase_main_path(wls):
     return session, traces, launches, seconds
 
 
-def phase_held_to_account(wls, gpu_session, gpu_traces):
+def phase_held_to_account(wls, gpu_session, gpu_traces, cpu):
+    """Phase 4: the card's main path against the CPU referee's run of the
+    same stream (``cpu_main_path``) and the numpy serial oracle."""
     from repro_torch import convert
     from repro_torch.core import oracle
     from repro_torch.core.engine import TRACE_FIELDS
     from repro_torch.core.sequencer import RoundRobinSequencer
 
-    t0 = time.perf_counter()
-    cpu_session, cpu_traces = run_stream(wls, "cpu")
     fp = gpu_session.fingerprint()
-    assert fp == cpu_session.fingerprint(), "fingerprints differ"
-    assert gpu_session.replay_log() == cpu_session.replay_log()
-    for i, (g, c) in enumerate(zip(gpu_traces, cpu_traces)):
-        g, c = convert.trace_to_numpy(g), convert.trace_to_numpy(c)
+    assert fp == cpu["fingerprint"], "fingerprints differ"
+    assert gpu_session.replay_log() == cpu["replay_log"]
+    assert len(gpu_traces) == len(cpu["traces"]) == len(wls)
+    for i, (g, c) in enumerate(zip(gpu_traces, cpu["traces"])):
+        g = convert.trace_to_numpy(g)
         for f in TRACE_FIELDS:
             assert np.array_equal(g[f], c[f]), f"batch {i} trace.{f}"
-    t_cpu = time.perf_counter() - t0
+    t_cpu = cpu["seconds"]
 
     seqr = RoundRobinSequencer(n_root_lanes=N_LANES)
     values, versions, gv = oracle.serial_execute(
@@ -717,7 +844,8 @@ def phase_held_to_account(wls, gpu_session, gpu_traces):
     assert np.array_equal(store["values"], values), "values != oracle"
     assert np.array_equal(store["versions"], versions), "versions != oracle"
     assert int(store["gv"]) == gv == len(wls) * K
-    log(f"held to account: card == CPU run ({t_cpu:.1f} s) on fingerprint "
+    log(f"held to account: card == CPU run ({t_cpu:.1f} s in the CPU "
+        f"referee) on fingerprint "
         f"{fp:#010x}, replay log and all {len(TRACE_FIELDS)} trace fields; "
         f"store == numpy serial oracle (gv {gv})")
 
@@ -944,13 +1072,16 @@ def phase_validate(wl):
     assert torch.equal((rmask @ wmask) > 0.5, out), "validate != matmul"
     t = cuda_time_ms(lambda: validate.validate_bitsets(read_bits,
                                                        written_bits), 200)
+    t_dev = graph_time_ms(lambda: validate.validate_bitsets(read_bits,
+                                                            written_bits))
     t_plain = cuda_time_ms(lambda: ref.validate_bitsets_ref(
         read_bits, written_bits), 5)
     t_lib = cuda_time_ms(lambda: rmask @ wmask, 20)
     b = bound(k * w, k * w * 4 + w * 4 + k)
     log(f"validate K={k} x W={w} against the writes of the first "
         f"{VALIDATE_PREFIX} txns (Lw={lw}): {int(out.sum())} of {k} rows "
-        f"conflict; kernel {t:.4f} ms, plain {t_plain:.4f} ms, matmul "
+        f"conflict; kernel {t:.4f} ms ({t_dev:.4f} device only), plain "
+        f"{t_plain:.4f} ms, matmul "
         f"{t_lib:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); launches in the "
         f"ops.validate drive {launches}; bitwise equal to the plain version "
         f"(also at (1000, {w}) and (1000, {w - 1})), the pair kernel's "
@@ -958,16 +1089,19 @@ def phase_validate(wl):
     del rmask, wmask
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=t, plain_ms=t_plain, bound_ms=b[0],
-                bound_by=b[1], library_ms=t_lib), launches
+                bound_by=b[1], library_ms=t_lib, device_ms=t_dev), launches
 
 
 def timed(fn):
-    """fn() with the card synchronised on both sides: (result, seconds)."""
+    """fn() with the card synchronised on both sides: (result, seconds);
+    in the CPU referee, which sees no card, the host's seconds."""
     import torch
-    torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, time.perf_counter() - t0
 
 
@@ -1025,11 +1159,12 @@ def torch_tensor(a, device):
     return torch.from_numpy(a).to(device)
 
 
-def phase_engines(wl):
+def phase_engines(wl, cpu):
     """Every engine at the main path's size on the card: PoGL and DeSTM
     (both walks) held to the numpy serial oracle and to PCC, OCC to its
     CPU run per arrival with a nondeterminism witness and a replay
-    through PCC, every engine to its CPU run in every trace field."""
+    through PCC, every engine to its CPU run (``cpu_engines``, from the
+    CPU referee) in every trace field."""
     import torch
     from repro_torch import convert
     from repro_torch.core import oracle
@@ -1075,15 +1210,12 @@ def phase_engines(wl):
     assert launches["destm"]["conflict_matrix_bits_pair"] > 0
 
     # the card against the CPU, every engine and arrival
-    k_cpu = ENGINES_CPU_K
-    cpu_card = card if k_cpu == K else engine_runs(wl, "cuda", k_cpu)[0]
-    t0 = time.perf_counter()
-    cpu, _, _ = engine_runs(wl, "cpu", k_cpu)
-    t_cpu = time.perf_counter() - t0
-    for name, (store, trace, _, _, _) in cpu.items():
-        g = cpu_card[name]
-        assert fingerprint(g[0]) == fingerprint(store), f"{name} card != CPU"
-        gt, ct = convert.trace_to_numpy(g[1]), convert.trace_to_numpy(trace)
+    cpu, t_cpu = cpu
+    assert sorted(cpu) == sorted(card)
+    for name, (fp, ct) in cpu.items():
+        g = card[name]
+        assert fingerprint(g[0]) == fp, f"{name} card != CPU"
+        gt = convert.trace_to_numpy(g[1])
         for f in TRACE_FIELDS:
             assert np.array_equal(gt[f], ct[f]), f"{name} trace.{f}"
 
@@ -1101,59 +1233,70 @@ def phase_engines(wl):
         f"({int(tw.retry_waves)} <= {int(ts.retry_waves)} waves); OCC "
         f"fingerprints {fps['occ']:#010x} (sequence order) and "
         f"{fps['occ random arrival']:#010x} (random arrival), replayed "
-        f"through PCC; every engine == its CPU run at K={k_cpu} "
-        f"({t_cpu:.1f} s of CPU) in every trace field")
+        f"through PCC; every engine == its CPU run at K={K} "
+        f"({t_cpu:.1f} s in the CPU referee) in every trace field")
     return launches
 
 
-def phase_engines_pipelined(wls):
+def pipelined_stream(wls):
+    """Phase 10b's stream: the first ENGINES_CPU_K rows of each of the
+    main path's first three batches, (batches, lanes)."""
+    import torch
+    k = ENGINES_CPU_K
+    return ([w.batch.rows(torch.arange(k)) for w in wls[:3]],
+            [w.lanes[:k] for w in wls[:3]])
+
+
+def engine_stream_run(engine, depth, device, batches, lanes):
+    """One engine's ``run_stream`` on a fresh session: (fingerprint,
+    replay log, traces as numpy, seconds, the kernels' launches)."""
+    from repro_torch import convert
+    from repro_torch.core.session import PotSession
+    from repro_torch.kernels import conflict, validate
+    s = PotSession(N_OBJECTS, engine=engine, n_lanes=N_LANES,
+                   pipeline_depth=depth, device=device)
+    conflict.reset_launches()
+    validate.reset_launches()
+    traces, seconds = timed(lambda: s.run_stream(batches, lanes))
+    return (s.fingerprint(), s.replay_log(),
+            [convert.trace_to_numpy(t) for t in traces], seconds,
+            dict(conflict.LAUNCHES, **validate.LAUNCHES))
+
+
+def phase_engines_pipelined(wls, cpu):
     """Phase 10b: each engine's stream of the first ENGINES_CPU_K rows of
     the main path's first three batches through ``run_stream`` at depth
     2 on the card, held to its serial run on the card (every field but
-    ``spec_*``) and to the pipelined run on the CPU (every field); the
-    card's two runs timed."""
-    import torch
-    from repro_torch import convert
+    ``spec_*``) and to the pipelined run on the CPU (every field; from
+    the CPU referee, ``cpu_engines_pipelined``); the card's two runs
+    timed."""
     from repro_torch.core.engine import TRACE_FIELDS
-    from repro_torch.core.session import PotSession
-    from repro_torch.kernels import conflict, validate
 
     k = ENGINES_CPU_K
-    batches = [w.batch.rows(torch.arange(k)) for w in wls[:3]]
-    lanes = [w.lanes[:k] for w in wls[:3]]
+    batches, lanes = pipelined_stream(wls)
     cpu_seconds = 0.0
     for engine in ("pcc", "pogl", "destm", "occ"):
-        # serial and pipelined on the card, then pipelined on the CPU
-        runs = []
-        for device, depth in (("cuda", 0), ("cuda", 2), ("cpu", 2)):
-            s = PotSession(N_OBJECTS, engine=engine, n_lanes=N_LANES,
-                           pipeline_depth=depth, device=device)
-            conflict.reset_launches()
-            validate.reset_launches()
-            traces, seconds = timed(lambda: s.run_stream(batches, lanes))
-            runs.append((s, [convert.trace_to_numpy(t) for t in traces],
-                         seconds, dict(conflict.LAUNCHES,
-                                       **validate.LAUNCHES)))
-        cpu_seconds += runs[2][2]
-        serial, piped = runs[0][1], runs[1][1]
-        for s, traces, _, _ in runs[1:]:
-            assert s.fingerprint() == runs[0][0].fingerprint(), \
-                f"{engine} fingerprints differ"
-            assert s.replay_log() == runs[0][0].replay_log(), \
-                f"{engine} replay logs differ"
-            twin = serial if s.pipeline_depth == 0 else piped
-            for i, (a, b, c) in enumerate(zip(serial, traces, twin)):
+        # serial and pipelined on the card; pipelined on the CPU
+        runs = [engine_stream_run(engine, depth, "cuda", batches, lanes)
+                for depth in (0, 2)] + [cpu[engine]]
+        cpu_seconds += runs[2][3]
+        serial, piped = runs[0][2], runs[1][2]
+        for (fp, replay, traces, _, _), device in zip(runs[1:],
+                                                      ("cuda", "cpu")):
+            assert fp == runs[0][0], f"{engine} fingerprints differ"
+            assert replay == runs[0][1], f"{engine} replay logs differ"
+            assert len(traces) == len(serial) == 3, engine
+            for i, (a, b, c) in enumerate(zip(serial, traces, piped)):
                 for f in TRACE_FIELDS:
                     assert np.array_equal(b[f], c[f]), \
-                        f"{engine} batch {i} depth {s.pipeline_depth} on " \
-                        f"{s.device}: {f}"
+                        f"{engine} batch {i} depth 2 on {device}: {f}"
                     if not f.startswith("spec_"):
                         assert np.array_equal(a[f], b[f]), \
                             f"{engine} batch {i} pipelined != serial: {f}"
-        launches = runs[1][3]
+        launches = runs[1][4]
         assert sum(int(t["spec_executed"]) for t in piped) == 3 * k
         assert launches["validate_bitsets"] > 0, engine
-        ms = [r[2] * 1e3 for r in runs[:2]]
+        ms = [r[3] * 1e3 for r in runs[:2]]
         log(f"  {engine:6s} 3 x {k} txns: serial {ms[0]:.1f}, pipelined "
             f"(depth 2) {ms[1]:.1f} ms; "
             f"spec_executed "
@@ -1162,7 +1305,7 @@ def phase_engines_pipelined(wls):
             f"{[int(t['spec_rounds']) for t in piped]}; launches {launches}")
     log(f"engines pipelined: all four at depth 2 == their serial runs on "
         f"the card (every field but spec_*) == their CPU runs (every "
-        f"field; {cpu_seconds:.1f} s of CPU), K={k}, 3 batches")
+        f"field; {cpu_seconds:.1f} s in the CPU referee), K={k}, 3 batches")
 
 
 def occ_witness():
@@ -1227,29 +1370,56 @@ def kv_commit_bytes(page_idx, row_idx, commit, n_pages, page, h, elem):
     return len(rows) * h * (4 + elem) + 4 * len(pages) + 16 * len(page_idx)
 
 
-def phase_kv_commit():
-    """The ordered paged-commit kernel vs its plain version, bitwise."""
+def kv_commit_bare(cache, versions, rows, meta) -> None:
+    """A launch of the commit's entry point for ``cache``'s dtype through
+    the shared ctypes path, with no wrapper and not counted in
+    ``LAUNCHES``: what the wrapper's own host work costs, by difference."""
     import torch
-    from repro_torch.kernels import kv_commit, ref
+    from repro_torch.kernels import _build
+    dtype = "bf16" if cache.dtype == torch.bfloat16 else "f32"
+    n_pages, page, h = cache.shape
+    _build.launch("kv_commit", "pot_kv_commit_" + dtype, cache.device,
+                  cache.data_ptr(), versions.data_ptr(), rows.data_ptr(),
+                  *(t.data_ptr() for t in meta), n_pages, page, h,
+                  rows.shape[0])
+
+
+def phase_kv_commit():
+    """The ordered paged-commit kernel vs its plain version, bitwise, at
+    three shapes; its host-rate and device-only times beside an empty
+    launch's, and at the session's store at decode_32k's size the
+    functional route (clones, then the commit) against the in-place one."""
+    import torch
+    from repro_torch.kernels import kv_commit, ops, ref
     from repro_torch.configs import SHAPES, get_config
+    from repro_torch.serve.session import META_WIDTH
 
     cfg = get_config(SERVE_ARCH)
     big = SHAPES["decode_32k"]
     page = 16
+    big_pages = big.global_batch * big.seq_len // page
     shapes = {
-        "session": (SERVE_SLOTS * SERVE_MAX_SEQ // page, page, 8,
+        "session": (SERVE_SLOTS * SERVE_MAX_SEQ // page, page, META_WIDTH,
                     SERVE_SLOTS, torch.float32),
-        "decode_32k": (big.global_batch * big.seq_len // page, page,
-                       cfg.n_kv_heads * cfg.hd, big.global_batch,
-                       torch.bfloat16),
+        "decode_32k": (big_pages, page, cfg.n_kv_heads * cfg.hd,
+                       big.global_batch, torch.bfloat16),
+        # the serving session's own store at decode_32k's slots and
+        # positions: what one step's commit would clone on the
+        # functional route
+        "store_32k": (big_pages, page, META_WIDTH, big.global_batch,
+                      torch.float32),
     }
     rng = np.random.default_rng(SEED)
-    floor = cuda_time_ms(lambda: kv_commit.empty_launch("cuda"), 200)
+    empty = lambda: kv_commit.empty_launch("cuda")
+    floor, floor_dev = host_rate_ms(empty), graph_time_ms(empty)
+    log(f"kv_commit: empty launch {floor[0]:.5f}-{floor[1]:.5f} ms at the "
+        f"host's rate (best and worst of 5 rounds of 200 calls), "
+        f"{floor_dev:.5f} ms device only (CUDA graph of 200)")
     out = {}
     for label, (n_pages, page, h, n_slots, dtype) in shapes.items():
         cache, versions, rows, meta = kv_commit_inputs(
             rng, n_pages, page, h, n_slots, dtype)
-        got_c, got_v = kv_commit.kv_commit(cache, versions, rows, *meta)
+        got_c, got_v = ops.kv_cache_commit(cache, versions, rows, *meta)
         exp_c, exp_v = ref.kv_commit_ref(cache, versions, rows, *meta)
         torch.cuda.synchronize()
         assert torch.equal(got_c.view(torch.uint8), exp_c.view(torch.uint8)
@@ -1259,8 +1429,12 @@ def phase_kv_commit():
         assert changed > 0, "no page committed"
         err = max(max_abs_diff(got_c, exp_c), max_abs_diff(got_v, exp_v))
         del exp_c, exp_v
-        t = cuda_time_ms(
-            lambda: kv_commit.kv_commit_(got_c, got_v, rows, *meta), 200)
+        # committing the same step again leaves the committed state as it
+        # is, so every timed call sees the same work
+        commit_ = lambda: ops.kv_cache_commit_(got_c, got_v, rows, *meta)
+        t, t_dev = host_rate_ms(commit_), graph_time_ms(commit_)
+        bare_ = lambda: kv_commit_bare(got_c, got_v, rows, meta)
+        bare, bare_dev = host_rate_ms(bare_), graph_time_ms(bare_)
         t_plain = cuda_time_ms(
             lambda: ref.kv_commit_ref_(got_c, got_v, rows, *meta), 5)
         t_clone = cuda_time_ms(lambda: (cache.clone(), versions.clone()),
@@ -1271,13 +1445,25 @@ def phase_kv_commit():
         log(f"kv_commit {label}: cache ({n_pages}, {page}, {h}) "
             f"{str(dtype).split('.')[-1]} "
             f"({cache.numel() * cache.element_size() / 1e9:.3f} GB), "
-            f"S={n_slots}, {changed} pages stamped: kernel {t:.5f} ms in "
-            f"place, plain {t_plain:.4f} ms, clone of cache+versions "
-            f"{t_clone:.4f} ms, bound {bound_ms:.3e} ms ({nbytes} bytes), "
-            f"empty launch {floor:.5f} ms, bitwise equal")
-        out[label] = dict(max_abs_err=err, ms=t, plain_ms=t_plain,
+            f"S={n_slots}, {changed} pages stamped: kernel in place "
+            f"{t[0]:.5f}-{t[1]:.5f} ms at the host's rate, {t_dev:.5f} ms "
+            f"device only; bare launch {bare[0]:.5f}-{bare[1]:.5f} / "
+            f"{bare_dev:.5f} ms; plain {t_plain:.4f} ms, "
+            f"clone of cache+versions {t_clone:.4f} ms, bound "
+            f"{bound_ms:.3e} ms ({nbytes} bytes), all bitwise equal")
+        if label == "store_32k":
+            functional = cuda_time_ms(lambda: ops.kv_cache_commit(
+                cache, versions, rows, *meta), 20)
+            in_place = cuda_time_ms(commit_, 20)
+            log(f"  one serving step's commit at this store: functional "
+                f"route (clone, commit) {functional:.4f} ms, in place "
+                f"{in_place:.5f} ms (20 calls each at the host's rate)")
+        # ms at the host's rate as on every row (the best of the rounds),
+        # the card's own time beside it
+        out[label] = dict(max_abs_err=err, ms=t[0], plain_ms=t_plain,
                           bound_ms=bound_ms, bound_by="bytes",
-                          library_ms=None, floor_ms=floor,
+                          library_ms=None, device_ms=t_dev,
+                          floor_ms=floor[0], floor_device_ms=floor_dev,
                           clone_ms=t_clone)
         del cache, versions, rows, meta, got_c, got_v
         torch.cuda.empty_cache()
@@ -1316,11 +1502,17 @@ def serve_replicas(cfg, params):
                        max_seq=SERVE_MAX_SEQ, device="cuda")
         for slot, tok in order:
             sess.add_request(slot, tok)
+        store = (sess.page_meta, sess.page_versions)
+        ptrs = [t.data_ptr() for t in store]
         toks, times = [], []
         for _ in range(SERVE_STEPS):
             t0 = time.perf_counter()
             toks.append(sess.step())   # returns host tokens: synchronised
             times.append(time.perf_counter() - t0)
+        assert sess.page_meta is store[0] and \
+            sess.page_versions is store[1] and \
+            [t.data_ptr() for t in store] == ptrs, \
+            f"{cfg.name}: the session's store was not committed in place"
         runs.append((np.stack(toks, axis=1), sess.fingerprint(), times))
         del sess
     torch.cuda.synchronize()
@@ -1574,6 +1766,9 @@ def phase_adamw():
                 else "pot_adamw_f32g"
             t = cuda_time_ms(
                 lambda: adamw_bare(entry, (hp, p, m, v, g, *got), n), iters)
+            t_dev = graph_time_ms(
+                lambda: adamw_bare(entry, (hp, p, m, v, g, *got), n), iters,
+                2)
             t_wrap = cuda_time_ms(
                 lambda: fused_adamw.fused_adamw(p, m, v, g, hp), iters)
             t_plain = cuda_time_ms(lambda: ref.adamw_ref(p, m, v, g, hp),
@@ -1587,13 +1782,15 @@ def phase_adamw():
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
             gname = str(g.dtype).split(".")[-1]
             log(f"fused_adamw {leaf} {shape} g {gname}: kernel {t:.4f} ms "
-                f"({nbytes / t / 1e9:.3f} TB/s), wrapper {t_wrap:.4f} ms, "
+                f"({nbytes / t / 1e9:.3f} TB/s; {t_dev:.4f} device only), "
+                f"wrapper {t_wrap:.4f} ms, "
                 f"plain {t_plain:.4f} ms, torch._fused_adamw_ (f32 g) "
                 f"{t_lib:.4f} ms, bound {bound_ms:.4f} ms (bytes), "
                 f"bitwise equal")
             out[(leaf, gname)] = dict(
                 max_abs_err=err, ms=t, plain_ms=t_plain, bound_ms=bound_ms,
-                bound_by="bytes", library_ms=t_lib, wrapper_ms=t_wrap)
+                bound_by="bytes", library_ms=t_lib, wrapper_ms=t_wrap,
+                device_ms=t_dev)
             if leaf in ("w1", "expert") and g is g32:
                 kernel_ms, lib_ms = in_turns((
                     lambda: adamw_bare(entry, (hp, p, m, v, g, *got), n),
@@ -1798,9 +1995,24 @@ def train_runs(cfg, params, device, steps, dcfg):
     return state, losses
 
 
-def phase_train_held():
+def start_launcher(ckpt_dir):
+    """The training launcher on the card, phase 9's last check, as its own
+    process: the smoke configuration (90,368 parameters) for 4 steps, a
+    few hundred small kernels.  Started early so that its start-up (an
+    interpreter, torch, a CUDA context) runs beside other phases:
+    (process, start time)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         TRAIN_ARCH, "--smoke", "--steps", "4", "--ckpt-dir", ckpt_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    ), time.perf_counter()
+
+
+def phase_train_held(launcher):
     """The smoke configuration trained on the card against the CPU; the
-    restart on the card; the launcher on the card.
+    restart on the card; the launcher on the card (``start_launcher``'s
+    process, awaited here).
 
     Card and CPU compute in bf16 with float32 accumulation and round at
     other places, as the port and the reference do on the CPU, so they
@@ -1886,18 +2098,14 @@ def phase_train_held():
         f"2, bitwise on all {len(leaves(straight))} leaves and the losses")
 
     # the launcher, on the card
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-             TRAIN_ARCH, "--smoke", "--steps", "4", "--ckpt-dir", d],
-            capture_output=True, text=True, timeout=300, cwd=ROOT,
-            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    assert proc.stdout.rstrip().endswith("done"), proc.stdout
-    lines = proc.stdout.strip().splitlines()
-    log(f"  launcher on the card, exit 0 in "
-        f"{time.perf_counter() - t0:.1f} s: {lines[0]} | {lines[-2]}")
+    proc, t0 = launcher
+    stdout, stderr = proc.communicate(timeout=300)
+    assert proc.returncode == 0, stderr[-4000:]
+    assert stdout.rstrip().endswith("done"), stdout
+    lines = stdout.strip().splitlines()
+    log(f"  launcher on the card (started beside phase 12, awaited "
+        f"{time.perf_counter() - t0:.1f} s later), exit 0: {lines[0]} | "
+        f"{lines[-2]}")
 
 
 def phase_legacy_scan(wl):
@@ -2146,7 +2354,8 @@ def phase_ring():
 
 def shard_kernel_line(name, m, n, ws, per_ms, loop_ms, dense_ms, plain_ms,
                       bnd, extra=""):
-    return (f"  {name} ({m}, {n}) x W_s={ws}: one shard {per_ms:.4f} ms, "
+    return (f"  {name} ({m}, {n}) x W_s={ws}: one shard {per_ms[0]:.4f} "
+            f"ms ({per_ms[1]:.4f} device only), "
             f"the {SHARDS} shards' launches {loop_ms:.4f} ms, the dense "
             f"call at W={SHARDS * ws} {dense_ms:.4f} ms, plain (one shard) "
             f"{plain_ms:.4f} ms, bound (one shard) {bnd[0]:.4f} ms "
@@ -2198,10 +2407,11 @@ def phase_shard_kernels(wls, n_live: int):
         assert torch.equal(ored, dense), \
             f"OR over shards != dense {kernel.__name__}"
         per = cuda_time_ms(lambda: kernel(*shard_args[0]), 50)
+        per_dev = graph_time_ms(lambda: kernel(*shard_args[0]), 50)
         loop = cuda_time_ms(lambda: [kernel(*a) for a in shard_args], 20)
         whole = cuda_time_ms(lambda: kernel(*dense_args), 20)
         plain_ms = cuda_time_ms(lambda: plain(*shard_args[0]), 2, 1)
-        return per, loop, whole, plain_ms
+        return (per, per_dev), loop, whole, plain_ms
 
     out = {}
     suffix = rank >= K - 256
@@ -3168,7 +3378,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.core import workloads as W
+    import repro_torch  # noqa: F401  (fails here outside a checkout)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3178,11 +3388,31 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     torch.use_deterministic_algorithms(True)
+    t_start = time.perf_counter()
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = clocked(fn)
+    # the CPU referee starts at once: its runs are ready before the
+    # phases that read them
+    import multiprocessing
+    referee = multiprocessing.get_context("spawn").Pool(
+        1, initializer=referee_init)
+    try:
+        cpu = {fn.__name__: referee.apply_async(fn) for fn in (
+            cpu_main_path, cpu_engines, cpu_engines_pipelined)}
+        return run_phases(cpu, t_start)
+    finally:
+        referee.terminate()
+        referee.join()
+
+
+def run_phases(cpu, t_start) -> int:
+    """Every phase in order; ``cpu`` holds the CPU referee's pending
+    results by function name."""
+    import torch
     phase_build()
 
-    wls = [W.vacation_like(n_txns=K, n_objects=N_OBJECTS, n_lanes=N_LANES,
-                           update_pct=90, seed=SEED + b, device="cpu")
-           for b in range(N_BATCHES + 1)]
+    wls = stream_workloads()
     stream, extra = wls[:N_BATCHES], wls[N_BATCHES]
     kernels = phase_kernels(stream[0].batch.to("cuda"))
     phase_spec_strip(stream[0].batch.to("cuda"), stream[1].batch.to("cuda"))
@@ -3192,7 +3422,8 @@ def main() -> int:
     kernels["validate_bitsets"], _ = phase_validate(stream[0])
     main_stream = stream[:MAIN_PATH_BATCHES]
     gpu_session, gpu_traces, launches, seconds = phase_main_path(main_stream)
-    phase_held_to_account(main_stream, gpu_session, gpu_traces)
+    phase_held_to_account(main_stream, gpu_session, gpu_traces,
+                          cpu["cpu_main_path"].get())
     phase_round_breakdown(extra)
     from repro_torch import convert
     dense = dict(fingerprint=gpu_session.fingerprint(),
@@ -3205,28 +3436,41 @@ def main() -> int:
     served_launches, served = phase_pipelined_serving(stream)
     launches["validate_bitsets"] = served_launches["validate_bitsets"]
     sharded, _ = phase_sharded(main_stream, dense, served)
-    phase_recovery(served, sharded)
-    del sharded, served, dense
-    params, launches["kv_commit"] = phase_serve()
-    phase_serve_held(params)
-    del params                # the 24 GB of serving weights
-    torch.cuda.empty_cache()
-    launches["kv_commit"] += phase_families()
-    launches["fused_adamw"], trained = phase_train()
-    launches["fused_adamw_speculative"] = spec_launches
-    phase_train_held()
+    # phase 9's launcher starts beside phase 12, whose first run (the
+    # victim's, which dies) no metric reads
+    launch_dir = tempfile.TemporaryDirectory()
+    launcher = start_launcher(launch_dir.name)
+    try:
+        phase_recovery(served, sharded)
+        del sharded, served, dense
+        params, launches["kv_commit"] = phase_serve()
+        phase_serve_held(params)
+        del params                # the 24 GB of serving weights
+        torch.cuda.empty_cache()
+        launches["kv_commit"] += phase_families()
+        launches["fused_adamw"], trained = phase_train()
+        launches["fused_adamw_speculative"] = spec_launches
+        phase_train_held(launcher)
+    finally:
+        if launcher[0].poll() is None:
+            launcher[0].kill()
+            launcher[0].wait()
+        launch_dir.cleanup()
     phase_legacy_scan(stream[0])
     phase_dp_train(trained)
     phase_ring()
     launches["fused_adamw"] += phase_train_families()
     phase_layout()
     launches["fused_adamw"] += phase_dryrun()
-    phase_engines(stream[0])
-    phase_engines_pipelined(stream)
+    phase_engines(stream[0], cpu["cpu_engines"].get())
+    phase_engines_pipelined(stream, cpu["cpu_engines_pipelined"].get())
 
     summary = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     **kernels[name]) for name in REPLACES]
+    log("phase seconds (wall): " + json.dumps(
+        {k[len("phase_"):]: round(v, 1) for k, v in PHASE_SECONDS.items()}
+        | {"total": round(time.perf_counter() - t_start, 1)}))
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _HERE = Path(__file__).resolve().parent
 SOURCES = {"conflict": _HERE / "csrc" / "conflict.cu",
            "kv_commit": _HERE / "csrc" / "kv_commit.cu",
@@ -55,6 +57,7 @@ SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc() -> str:
@@ -119,21 +122,32 @@ def load(name: str) -> ctypes.CDLL:
 def on_card(t, what: str) -> bool:
     """True for a CUDA tensor (the kernel's route), False for a CPU one
     (the plain version's); raises for any other device."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
         raise ValueError(f"no {what} kernel for device {t.device}")
-    return True
+    return False
 
 
-def launch(name: str, fn: str, device, *args) -> None:
-    """Launch entry point ``fn`` of library ``name`` on ``device``'s
-    current stream, with ``device`` made current so the kernel runs
-    where its tensors live; raises if the launch was refused."""
-    import torch
-    lib = load(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
+def launch(name: str, fn: str, device: torch.device, *args) -> None:
+    """Launch entry point ``fn`` of library ``name`` on the current stream
+    of ``device`` (the capturing stream while a CUDA graph is captured),
+    with ``device`` made current first where it is not, so the kernel
+    runs where its tensors live; raises if the launch was refused.
+
+    This is the host path of every launch, so it does as little as it
+    can: the entry point is resolved once, the device guard is entered
+    only for a device that is not the current one, and the stream is
+    read as a raw handle on every call."""
+    f = _entries.get((name, fn))
+    if f is None:
+        f = _entries[(name, fn)] = getattr(load(name), fn)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = f(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = f(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError {err}")

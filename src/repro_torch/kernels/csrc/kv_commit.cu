@@ -17,16 +17,25 @@
 // written, plus 16*S bytes of slot metadata and S version words.  At the
 // serving path's shapes (S = 8 slots, H = 8) that is about 0.5 KB, and at
 // a decode_32k-sized cache (S = 128, H = 1280, bf16) about 1 MB, 0.3 us at
-// 3.35 TB/s: far under one launch, so the launch is the floor.
+// 3.35 TB/s: far under one launch, so the launch is the floor, and the
+// design keeps the kernel's own time near an empty kernel's.
 //
-// What the design does about it: one block per slot, no atomics and no
-// dependence on block order.  A slot writes its row only if no later
-// committing slot targets the same page and row, and writes
-// versions[p] only if no later committing slot targets page p, so every
-// element has exactly one writer.  The test is O(S) per block (its
-// threads split the later slots and vote with __syncthreads_or); S is the
-// decode batch, at most a few hundred.  The row copy is a strided loop,
-// coalesced across the block's threads.
+// What the design does about it: one warp a slot, WARPS slots a CTA, so
+// the serving path's S = 8 is one CTA.  Every element has exactly one
+// writer, with no atomics and no dependence on block order: a slot writes
+// its row only if no later committing slot targets the same (page, row),
+// and writes versions[p] only if no later committing slot targets page p.
+// The CTA stages the later slots' placed (page, row) into shared memory
+// CHUNK at a time, with coalesced loads, and each warp tests its slot
+// against them from there, its lanes splitting the slots and voting with
+// __any_sync; the CTA stops staging once every warp has decided.  Any S
+// takes the same path.  The row copy moves 16 bytes of float32 a lane
+// (stored as 16 bytes of float32 or 8 of bf16) where both rows are so
+// aligned, and a scalar tail for the last h % 4 elements.  A slot's
+// sequence number and its row's first 32 * BATCH quads are loaded into
+// registers before the test, so the test hides their latency and a
+// winning warp only stores after it.  TMA or a bulk copy would add
+// set-up to a sub-microsecond scatter with no reuse.
 //
 // Each entry point returns cudaGetLastError() so the Python wrapper can
 // refuse a failed launch.
@@ -37,18 +46,71 @@
 
 namespace {
 
-constexpr int THREADS = 128;
-
-__device__ __forceinline__ void store(float* dst, float v) { *dst = v; }
-
-// round to nearest even, as astype(bfloat16) does
-__device__ __forceinline__ void store(__nv_bfloat16* dst, float v) {
-  *dst = __float2bfloat16_rn(v);
-}
+constexpr int WARPS = 8;               // slots a CTA
+constexpr int THREADS = WARPS * 32;
+constexpr int CHUNK = 1024;            // slots staged a pass: 8 KB
+constexpr int BATCH = 16;              // float4 a lane holds: 2,048 floats
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int page_row(int r, int page) {
   if (r < 0) r += page;
   return min(max(r, 0), page - 1);
+}
+
+// the page slot t commits to, or -1 where it commits nothing
+__device__ __forceinline__ int committed_page(const int* page_idx,
+                                              const int* commit, int t,
+                                              int n_pages) {
+  const int p = page_idx[t];
+  return (commit[t] != 0 && p >= 0 && p < n_pages) ? p : -1;
+}
+
+// round to nearest even, as astype(bfloat16) does
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void store_quad(float* dst, int i, float4 v) {
+  reinterpret_cast<float4*>(dst)[i] = v;
+}
+
+__device__ __forceinline__ void store_quad(__nv_bfloat16* dst, int i,
+                                           float4 v) {
+  reinterpret_cast<uint2*>(dst)[i] =
+      make_uint2(bf16_bits(v.x) | (bf16_bits(v.y) << 16),
+                 bf16_bits(v.z) | (bf16_bits(v.w) << 16));
+}
+
+__device__ __forceinline__ void store_one(float* dst, float v) { *dst = v; }
+
+__device__ __forceinline__ void store_one(__nv_bfloat16* dst, float v) {
+  *dst = __float2bfloat16_rn(v);
+}
+
+// A lane's share of up to 32 * BATCH quads of a row, held in registers.
+struct Quads {
+  float4 v[BATCH];
+};
+
+__device__ __forceinline__ void load_quads(Quads& q,
+                                           const float* __restrict__ src,
+                                           int first, int quads) {
+#pragma unroll
+  for (int k = 0; k < BATCH; ++k) {
+    const int i = first + 32 * k;
+    if (i < quads) q.v[k] = reinterpret_cast<const float4*>(src)[i];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_quads(T* __restrict__ dst,
+                                            const Quads& q, int first,
+                                            int quads) {
+#pragma unroll
+  for (int k = 0; k < BATCH; ++k) {
+    const int i = first + 32 * k;
+    if (i < quads) store_quad(dst, i, q.v[k]);
+  }
 }
 
 template <typename T>
@@ -59,25 +121,62 @@ kv_commit_kernel(T* __restrict__ cache, int* __restrict__ versions,
                  const int* __restrict__ row_idx, const int* __restrict__ sn,
                  const int* __restrict__ commit, int n_pages, int page, int h,
                  int n_slots) {
-  const int s = blockIdx.x;
-  const int p = page_idx[s];
-  // uniform across the block: every thread reads the same slot
-  if (commit[s] == 0 || p < 0 || p >= n_pages) return;
-  const int r = page_row(row_idx[s], page);
-  bool later_page = false, later_row = false;
-  for (int t = s + 1 + threadIdx.x; t < n_slots; t += THREADS) {
-    if (commit[t] != 0 && page_idx[t] == p) {
-      later_page = true;
-      later_row = later_row || page_row(row_idx[t], page) == r;
-    }
-  }
-  later_page = __syncthreads_or(later_page);
-  later_row = __syncthreads_or(later_row);
-  if (!later_page && threadIdx.x == 0) versions[p] = sn[s];
-  if (later_row) return;
-  T* dst = cache + ((int64_t)p * page + r) * h;
+  __shared__ int s_page[CHUNK];   // -1: the slot commits nothing
+  __shared__ int s_row[CHUNK];
+  const int lane = threadIdx.x & 31;
+  const int first = blockIdx.x * WARPS;
+  const int s = first + (threadIdx.x >> 5);
+  // uniform across the warp: every lane reads the same slot
+  const int p = s < n_slots ? committed_page(page_idx, commit, s, n_pages)
+                            : -1;
+  const int r = s < n_slots ? page_row(row_idx[s], page) : 0;
+  T* dst = cache + ((int64_t)max(p, 0) * page + r) * h;
   const float* src = rows + (int64_t)s * h;
-  for (int c = threadIdx.x; c < h; c += THREADS) store(dst + c, src[c]);
+  // the row moves 16 bytes a lane where both ends are so aligned; the
+  // slot's sn and the row's first quads are loaded before the test
+  // below, so their latency overlaps it (a slot that loses discards them)
+  const bool vec = (((uintptr_t)src & 15) | ((uintptr_t)dst &
+                                             (4 * sizeof(T) - 1))) == 0;
+  const int quads = vec ? h >> 2 : 0;
+  int my_sn = 0;
+  Quads q;
+  if (p >= 0) {
+    my_sn = sn[s];
+    load_quads(q, src, lane, quads);
+  }
+  bool later_page = false, later_row = false;
+  bool decided = p < 0;           // a later row hit implies a page hit
+  for (int base = first; base < n_slots; base += CHUNK) {
+    const int n = min(CHUNK, n_slots - base);
+    for (int i = threadIdx.x; i < n; i += THREADS) {
+      s_page[i] = committed_page(page_idx, commit, base + i, n_pages);
+      s_row[i] = page_row(row_idx[base + i], page);
+    }
+    __syncthreads();
+    if (!decided) {
+      bool hit_page = false, hit_row = false;
+      for (int i = max(s + 1 - base, 0) + lane; i < n; i += 32) {
+        if (s_page[i] == p) {
+          hit_page = true;
+          hit_row = hit_row || s_row[i] == r;
+        }
+      }
+      later_page = __any_sync(FULL, later_page || hit_page);
+      later_row = __any_sync(FULL, later_row || hit_row);
+      decided = later_row;
+    }
+    // also the barrier before the next chunk overwrites shared memory
+    if (__syncthreads_and(decided)) break;
+  }
+  if (p < 0) return;
+  if (!later_page && lane == 0) versions[p] = my_sn;
+  if (later_row) return;
+  store_quads(dst, q, lane, quads);
+  for (int i = lane + 32 * BATCH; i < quads; i += 32 * BATCH) {
+    load_quads(q, src, i, quads);
+    store_quads(dst, q, i, quads);
+  }
+  for (int c = (quads << 2) + lane; c < h; c += 32) store_one(dst + c, src[c]);
 }
 
 __global__ void empty_kernel() {}
@@ -86,7 +185,8 @@ template <typename T>
 int launch(T* cache, int* versions, const float* rows, const int* page_idx,
            const int* row_idx, const int* sn, const int* commit, int n_pages,
            int page, int h, int n_slots, void* stream) {
-  kv_commit_kernel<T><<<n_slots, THREADS, 0, (cudaStream_t)stream>>>(
+  const int blocks = (n_slots + WARPS - 1) / WARPS;
+  kv_commit_kernel<T><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       cache, versions, rows, page_idx, row_idx, sn, commit, n_pages, page, h,
       n_slots);
   return (int)cudaGetLastError();

@@ -34,23 +34,29 @@ def reset_launches() -> None:
 
 
 def _check(cache, versions, rows, meta) -> None:
-    if cache.dim() != 3 or cache.dtype not in _ENTRY:
+    # every launch passes here, so each test reads as few attributes as
+    # it can: the dtypes first, then one shape, then the devices
+    if cache.dtype not in _ENTRY or cache.dim() != 3:
         raise ValueError(f"cache must be (P, page, H) float32 or bfloat16, "
                          f"got {cache.dtype} {tuple(cache.shape)}")
     n_pages, _, h = cache.shape
-    if versions.shape != (n_pages,) or versions.dtype != torch.int32:
+    if versions.dtype != torch.int32 or versions.shape != (n_pages,):
         raise ValueError(f"versions must be ({n_pages},) int32, got "
                          f"{versions.dtype} {tuple(versions.shape)}")
-    if rows.dim() != 2 or rows.shape[1] != h or rows.dtype != torch.float32:
+    if rows.dtype != torch.float32 or rows.dim() != 2 or rows.shape[1] != h:
         raise ValueError(f"rows must be (S, {h}) float32, got {rows.dtype} "
                          f"{tuple(rows.shape)}")
+    slots = rows.shape[:1]
+    device = cache.device
+    if versions.device != device or rows.device != device:
+        raise ValueError(f"tensors on {versions.device}, {rows.device} and "
+                         f"{device}")
     for t in meta:
-        if t.shape != (rows.shape[0],) or t.dtype != torch.int32:
-            raise ValueError(f"slot metadata must be ({rows.shape[0]},) "
-                             f"int32, got {t.dtype} {tuple(t.shape)}")
-    for t in (versions, rows, *meta):
-        if t.device != cache.device:
-            raise ValueError(f"tensors on {t.device} and {cache.device}")
+        if t.dtype != torch.int32 or t.shape != slots:
+            raise ValueError(f"slot metadata must be ({slots[0]},) int32, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"tensors on {t.device} and {device}")
     if not (cache.is_contiguous() and versions.is_contiguous()):
         raise ValueError("cache and versions must be contiguous")
 
@@ -63,19 +69,22 @@ def kv_commit_(cache: torch.Tensor, versions: torch.Tensor,
     in place and return them.  A slot commits where ``commit != 0`` and
     ``0 <= page_idx < P``; its row id is placed as
     :func:`repro_torch.kernels.ref.page_row` says."""
-    meta = (page_idx, row_idx, sn, commit)
-    _check(cache, versions, rows, meta)
+    _check(cache, versions, rows, (page_idx, row_idx, sn, commit))
     if not _build.on_card(cache, "kv_commit"):
-        return ref.kv_commit_ref_(cache, versions, rows, *meta)
+        return ref.kv_commit_ref_(cache, versions, rows, page_idx, row_idx,
+                                  sn, commit)
     n_slots = rows.shape[0]
     if n_slots == 0:
         return cache, versions
-    rows = rows.contiguous()
-    meta = [t.contiguous() for t in meta]
+    # the names hold the contiguous tensors until the kernel is enqueued
+    rows, page_idx, row_idx = (rows.contiguous(), page_idx.contiguous(),
+                               row_idx.contiguous())
+    sn, commit = sn.contiguous(), commit.contiguous()
     n_pages, page, h = cache.shape
     _build.launch("kv_commit", _ENTRY[cache.dtype], cache.device,
                   cache.data_ptr(), versions.data_ptr(), rows.data_ptr(),
-                  *(t.data_ptr() for t in meta), n_pages, page, h, n_slots)
+                  page_idx.data_ptr(), row_idx.data_ptr(), sn.data_ptr(),
+                  commit.data_ptr(), n_pages, page, h, n_slots)
     LAUNCHES["kv_commit"] += 1
     return cache, versions
 

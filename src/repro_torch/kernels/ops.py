@@ -4,7 +4,8 @@ protocol (dense store, and their ``*_sharded`` twins, one kernel call a
 shard at the shard-local width), the rectangular conflict strips of DeSTM's
 retry waves (``cross_conflicts``), the cross-batch validation of
 pipelined sessions (``spec_read_invalid``), the ordered paged commit of the
-serving path (``kv_cache_commit``) and the fused AdamW commit of the
+serving path (``kv_cache_commit_`` in place, ``kv_cache_commit`` into
+copies) and the fused AdamW commit of the
 training path (``adamw_update`` and its speculative variant).
 
 The reference takes its Pallas kernels only on a TPU (``_on_tpu()``) and
@@ -376,6 +377,14 @@ def kv_cache_commit(cache, versions, rows, page_idx, row_idx, sn, commit):
     new ``(cache, versions)``; the inputs are left as they were."""
     return _kvc.kv_commit(cache, versions, rows, page_idx, row_idx, sn,
                           commit)
+
+
+def kv_cache_commit_(cache, versions, rows, page_idx, row_idx, sn, commit):
+    """:func:`kv_cache_commit` in place: commits into ``cache`` and
+    ``versions`` and returns them, writing only the committed rows and
+    versions (the serving step's route: no copy of the store)."""
+    return _kvc.kv_commit_(cache, versions, rows, page_idx, row_idx, sn,
+                           commit)
 
 
 def adamw_update(p, m, v, g, *, step, lr=1e-3, b1=0.9, b2=0.999,

@@ -9,7 +9,7 @@ state* — a paged metadata store of (page, row) entries, one page range
 per decode slot, and its page versions — is managed as preordered
 transactions: each decode step, every active slot's page-append is a
 transaction sequenced by the round-robin sequencer over slots, and the
-commits apply through the ordered paged-commit kernel
+commits apply in place through the ordered paged-commit kernel
 (``kernels/kv_commit.py``), stamping page versions with sequence
 numbers.  Two replicas fed the same requests emit bitwise-identical
 tokens and fingerprints whatever the order the requests arrived in.
@@ -80,22 +80,31 @@ class Session:
         nxt = torch.argmax(logits[:, 0], dim=-1)
         nxt_host = nxt.cpu().numpy().astype(np.int32)
 
-        # ---- Pot commit of page metadata, in sequencer order ----
+        # ---- Pot commit of page metadata, in sequencer order, in place
         slots = [s for s in range(self.n_slots) if self.active[s]]
         if slots:
-            sn = self.seqr.order_for(slots)
-            per_slot = self.max_seq // self.page_size
-            meta = np.asarray(
-                [[s * per_slot + int(self.pos[s]) // self.page_size
-                  for s in slots],
-                 [int(self.pos[s]) % self.page_size for s in slots],
-                 sn, np.ones(len(slots))], np.int32)
-            meta = torch.from_numpy(meta).to(self.device)
-            rows = np.repeat(nxt_host[slots].astype(np.float32)[:, None],
-                             META_WIDTH, axis=1)
-            self.page_meta, self.page_versions = ops.kv_cache_commit(
-                self.page_meta, self.page_versions,
-                torch.from_numpy(rows).to(self.device), *meta)
+            n = len(slots)
+            at = self.pos[slots]
+            # page_idx, row_idx, sn and commit (int32), then the rows'
+            # float32 bits: one buffer, one copy to the device
+            host = np.empty((4 + META_WIDTH) * n, np.int32)
+            meta = host[:4 * n].reshape(4, n)
+            meta[0] = (np.asarray(slots) * (self.max_seq // self.page_size)
+                       + at // self.page_size)
+            meta[1] = at % self.page_size
+            meta[2] = self.seqr.order_for(slots)
+            meta[3] = 1
+            host[4 * n:].view(np.float32).reshape(n, META_WIDTH)[:] = \
+                nxt_host[slots, None]
+            packed = torch.from_numpy(host)
+            if self.device.type != "cpu":
+                # pinned memory's allocator keeps the block until the
+                # copy from it is done
+                packed = packed.pin_memory().to(self.device,
+                                                non_blocking=True)
+            rows = packed[4 * n:].view(torch.float32).view(n, META_WIDTH)
+            ops.kv_cache_commit_(self.page_meta, self.page_versions, rows,
+                                 *packed[:4 * n].view(4, n))
 
         self.tokens = nxt[:, None]
         self.pos = self.pos + self.active.astype(np.int32)

@@ -446,6 +446,9 @@ def _kv_inputs(rng, p, page, h, s, dtype, device):
 @pytest.mark.parametrize("p,page,h,s", [
     (1, 1, 1, 1), (4, 2, 8, 3), (16, 8, 128, 8), (128, 16, 8, 8),
     (64, 4, 1280, 300),
+    # one slot; H not a multiple of 4 (the row copy's scalar tail, and
+    # rows not 16-byte aligned); S over several staged chunks of slots
+    (64, 16, 1280, 1), (8, 4, 7, 9), (32, 8, 1283, 40), (16, 4, 12, 4097),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kv_commit_kernel_equals_plain(cuda, p, page, h, s, dtype):
@@ -464,6 +467,77 @@ def test_kv_commit_kernel_equals_plain(cuda, p, page, h, s, dtype):
     cache, versions = kv_commit.kv_commit_(*args)
     assert cache is args[0] and torch.equal(cache, exp_c)
     assert torch.equal(versions, exp_v)
+
+
+def _commit_equals_plain(args):
+    got_c, got_v = kv_commit.kv_commit(*args)
+    exp_c, exp_v = ref.kv_commit_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got_c.view(torch.uint8), exp_c.view(torch.uint8))
+    assert torch.equal(got_v, exp_v)
+    return exp_c, exp_v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_commit_kernel_across_chunk_edges(cuda, dtype):
+    """4,097 slots on distinct pages but for pairs that straddle the
+    kernel's staged chunks of 1,024 slots: the same (page, row) at slots
+    1,023 and 1,024, the same page at 2,047 and 2,048 and at 0 and
+    4,096, the same (page, row) at 100, 3,000 and 4,095."""
+    rng = np.random.default_rng(11)
+    s, p, page, h = 4097, 5000, 2, 8
+    page_idx, row_idx = np.arange(s), np.zeros(s, np.int64)
+    page_idx[1024], page_idx[2048], page_idx[4096] = 1023, 2047, 0
+    row_idx[[2047, 4096]] = 1
+    page_idx[[3000, 4095]] = 100
+    args = _kv_inputs(rng, p, page, h, s, dtype, cuda)
+    t = lambda a: torch.from_numpy(a.astype(np.int32)).to(cuda)
+    args = (*args[:3], t(page_idx), t(row_idx), args[5],
+            t(np.ones(s)))
+    exp_c, exp_v = _commit_equals_plain(args)
+    assert torch.equal(exp_c[1023, 0], args[2][1024].to(dtype))
+    assert exp_v[0] == args[5][4096] and exp_v[100] == args[5][4095]
+
+
+@pytest.mark.parametrize("case", ["one_row", "all_skipped"])
+def test_kv_commit_kernel_on_degenerate_steps(cuda, case):
+    """Every slot on one (page, row): the last wins both; every slot
+    skipped: nothing changes."""
+    rng = np.random.default_rng(12)
+    s = 300
+    args = list(_kv_inputs(rng, 4, 4, 1280, s, torch.bfloat16, cuda))
+    if case == "one_row":
+        args[3] = torch.full((s,), 2, dtype=torch.int32, device=cuda)
+        args[4] = torch.full((s,), 1, dtype=torch.int32, device=cuda)
+        args[6] = torch.ones(s, dtype=torch.int32, device=cuda)
+    else:
+        args[6] = torch.zeros(s, dtype=torch.int32, device=cuda)
+    exp_c, exp_v = _commit_equals_plain(args)
+    if case == "one_row":
+        assert torch.equal(exp_c[2, 1], args[2][-1].bfloat16())
+        assert exp_v[2] == args[5][-1]
+    else:
+        assert torch.equal(exp_c, args[0]) and torch.equal(exp_v, args[1])
+
+
+def test_kv_commit_kernel_in_a_cuda_graph(cuda):
+    """A commit captured in a CUDA graph runs at replay, not at capture,
+    and gives the eager launch's result: the launch path enqueues on the
+    capturing stream."""
+    rng = np.random.default_rng(13)
+    args = _kv_inputs(rng, 128, 16, 8, 8, torch.float32, cuda)
+    eager_c, eager_v = kv_commit.kv_commit(*args)
+    cache, versions = args[0].clone(), args[1].clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        kv_commit.kv_commit_(cache, versions, *args[2:])
+    torch.cuda.synchronize()
+    assert torch.equal(cache, args[0]) and torch.equal(versions, args[1])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(cache.view(torch.uint8), eager_c.view(torch.uint8))
+    assert torch.equal(versions, eager_v)
+    assert not torch.equal(versions, args[1])
 
 
 def test_session_on_card_commits_like_cpu(cuda):
@@ -495,10 +569,14 @@ def test_session_on_card_commits_like_cpu(cuda):
         cpu.add_request(s, 3 + 7 * s)
         card.add_request(s, 3 + 7 * s)
     kv_commit.reset_launches()
+    ptrs = (card.page_meta.data_ptr(), card.page_versions.data_ptr())
     for _ in range(8):
         cpu_tokens = cpu.step()          # records the logits card is fed
         np.testing.assert_array_equal(card.step(), cpu_tokens)
     assert kv_commit.LAUNCHES["kv_commit"] == 8
+    # committed in place: the store is never copied
+    assert (card.page_meta.data_ptr(),
+            card.page_versions.data_ptr()) == ptrs
     assert torch.equal(card.page_meta.cpu(), cpu.page_meta)
     assert torch.equal(card.page_versions.cpu(), cpu.page_versions)
     assert card.fingerprint() == cpu.fingerprint()
