@@ -262,6 +262,21 @@ Phases, each printing its own lines:
    constants on one card no greater than the measured step time (the
    median of 3 steps after one), printed as the step-to-bound ratio,
    with the fused AdamW kernel's launches of those steps counted;
+   c. (run after a, on its group and mesh) the MoE layers' expert
+   parallelism (``models/moe.py``, the reference's ``_moe_shardmap``)
+   at world 1 on phase 17's deepseek-moe-16b cell (full width, 2
+   layers, bf16 weights): layer 0's MoE on 8 x 512 tokens through the
+   schedule and through the dense path, the output and, after one
+   backward, ``dx``, the router's and the three expert leaves'
+   gradients bitwise equal; a ``Session`` with the profile against one
+   without (8 slots, a 64-token prompt each through ``prefill``, 16
+   greedy steps): tokens and fingerprint bitwise equal; one pot step
+   (AdamW, 2 microbatches, phase 17's 8 x 512 batch, float32 masters)
+   with the profile against one without: the loss and every new
+   parameter and moment leaf bitwise equal, the fused AdamW kernel
+   launched once a leaf a step; the medians of 5 after a warm-up of the
+   layer's forward and forward plus backward, a decode step and a train
+   step, each with and without the profile;
 10b. (run last) each engine pipelined: ``run_stream`` at
    ``pipeline_depth=2`` over the first 256 rows of the stream's first
    three batches on the card, equal to the same engine's serial run on the card
@@ -366,6 +381,9 @@ FAMILY_HELD_SEQ = 64    # phase 17's Adafactor step on the card and the CPU
 DRYRUN_CELLS = (("deepseek-moe-16b", 2, 8, 512), ("stablelm-12b", 4, 8, 128))
 DRYRUN_STEPS = 3        # timed steps after one untimed
 PEAK_RANGE = (0.67, 1.5)  # predicted / measured peak per card
+# phase 18c: expert parallelism at world 1 on DRYRUN_CELLS[0]
+EP_SLOTS, EP_PROMPT, EP_STEPS, EP_MAX_SEQ = 8, 64, 16, 128
+EP_TIMED = 5            # medians of 5 after one warm-up
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 x
@@ -3242,7 +3260,8 @@ def free_port() -> int:
 
 def phase_layout():
     """Phase 18a: a world-1 NCCL group, the host mesh over the card, and
-    phase 17's deepseek cell's leaves laid out by their specs."""
+    phase 17's deepseek cell's leaves laid out by their specs.  Returns
+    the (1, 1) ("data", "model") mesh; the caller destroys the group."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -3257,35 +3276,165 @@ def phase_layout():
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{free_port()}", world_size=1, rank=0)
-    try:
-        host = make_host_mesh()
-        assert host.mesh_dim_names == ("data",) and host.size() == 1
-        mesh = init_device_mesh("cuda", (1, 1),
-                                mesh_dim_names=("data", "model"))
-        arch, n_layers, _, _ = DRYRUN_CELLS[0]
-        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
-        params = lm.init_params(
-            torch.Generator(device="cuda").manual_seed(SEED), cfg)
-        prof = Profile(mesh=mesh)
-        specs = flatten_up_to(params, lm.param_specs(cfg, prof))
-        n = 0
-        for t, spec in zip(leaves(params), specs, strict=True):
-            d = distribute_tensor(t, mesh, to_placements(spec, mesh, t.ndim))
-            local = d.to_local()
-            assert local.shape == t.shape and torch.equal(
-                local.view(torch.int16), t.view(torch.int16)), spec
-            assert cons(t, spec, prof) is t
-            n += t.numel()
-        log(f"layout: world-1 NCCL group, host mesh {host.mesh_dim_names} "
-            f"of {host.size()} card; {cfg.name} cut to {cfg.n_layers} "
-            f"layers, {len(specs)} leaves ({n:,} bf16 parameters) "
-            f"distributed by their specs on the (1, 1) (data, model) mesh: "
-            f"every local shard bitwise the tensor, cons the identity "
-            f"({time.perf_counter() - t0:.1f} s)")
-        del params, d, local
-    finally:
-        dist.destroy_process_group()
+    host = make_host_mesh()
+    assert host.mesh_dim_names == ("data",) and host.size() == 1
+    mesh = init_device_mesh("cuda", (1, 1),
+                            mesh_dim_names=("data", "model"))
+    arch, n_layers, _, _ = DRYRUN_CELLS[0]
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    params = lm.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    prof = Profile(mesh=mesh)
+    specs = flatten_up_to(params, lm.param_specs(cfg, prof))
+    n = 0
+    for t, spec in zip(leaves(params), specs, strict=True):
+        d = distribute_tensor(t, mesh, to_placements(spec, mesh, t.ndim))
+        local = d.to_local()
+        assert local.shape == t.shape and torch.equal(
+            local.view(torch.int16), t.view(torch.int16)), spec
+        assert cons(t, spec, prof) is t
+        n += t.numel()
+    log(f"layout: world-1 NCCL group, host mesh {host.mesh_dim_names} "
+        f"of {host.size()} card; {cfg.name} cut to {cfg.n_layers} "
+        f"layers, {len(specs)} leaves ({n:,} bf16 parameters) "
+        f"distributed by their specs on the (1, 1) (data, model) mesh: "
+        f"every local shard bitwise the tensor, cons the identity "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del params, d, local
     torch.cuda.empty_cache()
+    return mesh
+
+
+def median_ms(fn, n: int = EP_TIMED) -> float:
+    """The median of ``n`` timings of one call of ``fn`` (CUDA events)
+    after one warm-up call."""
+    fn()
+    return float(np.median([cuda_time_ms(fn, 1, warmup=0)
+                            for _ in range(n)]))
+
+
+def phase_moe_ep(mesh) -> tuple[int, int]:
+    """Phase 18c: the MoE layers' expert-parallel schedule at world 1 on
+    phase 18a's mesh, each check bitwise against the dense path.
+    Returns the fused AdamW and kv_commit kernels' launches of the
+    compared train steps and sessions."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_adamw, kv_commit
+    from repro_torch.models import lm, moe
+    from repro_torch.runtime.shardings import SMOKE, Profile
+    from repro_torch.serve.session import Session
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    prof = Profile(mesh=mesh)
+    arch, n_layers, rows, seq = DRYRUN_CELLS[0]
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+    bits = lambda t: t.view(torch.int16 if t.element_size() == 2 else
+                            torch.int32) if t.is_floating_point() else t
+    same = lambda a, b: len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+        for x, y in zip(a, b))
+    profiles = {"schedule": prof, "dense": SMOKE}
+    times = {}
+
+    # a. layer 0's MoE, bf16 weights and tokens
+    params = lm.init_params(gen(SEED), cfg)
+    local = lm.local_params(params, cfg, prof)
+    assert all(a is b for a, b in zip(leaves(local), leaves(params),
+                                      strict=True)), "a world-1 shard is cut"
+    p = params["layers"][0]["moe"]
+    x = torch.randn((rows, seq, cfg.d_model), generator=gen(SEED + 1),
+                    device="cuda").to(torch.bfloat16)
+    ct = torch.randn((rows, seq, cfg.d_model), generator=gen(SEED + 2),
+                     device="cuda").to(torch.bfloat16)
+    names = ("router",) + moe.EXPERT_LEAVES
+
+    def forward(pr):
+        with torch.no_grad():
+            return moe.moe_apply(p, x, cfg, pr)
+
+    def backward(pr):
+        leaf = {n: p[n].detach().requires_grad_(True) for n in names}
+        xg = x.detach().requires_grad_(True)
+        y = moe.moe_apply(dict(p, **leaf), xg, cfg, pr)
+        return [y.detach(), *torch.autograd.grad(
+            y, [xg, *leaf.values()], ct)]
+
+    got = {k: backward(pr) for k, pr in profiles.items()}
+    assert same(*got.values()), "the schedule's layer differs from dense"
+    assert same([forward(prof)], [forward(SMOKE)])
+    del got
+    for k, pr in profiles.items():
+        times[f"layer forward {k}"] = median_ms(lambda: forward(pr))
+        times[f"layer forward+backward {k}"] = median_ms(
+            lambda: backward(pr))
+
+    # b. serving: prefill of a prompt a slot, then greedy steps
+    prompts = torch.randint(0, cfg.vocab, (EP_SLOTS, EP_PROMPT),
+                            generator=gen(SEED + 3), device="cuda")
+    kv_commit.reset_launches()
+    served = {}
+    for k, pr in profiles.items():
+        sess = Session(cfg, params, n_slots=EP_SLOTS, max_seq=EP_MAX_SEQ,
+                       device="cuda", prof=pr)
+        first = sess.prefill(prompts)
+        served[k] = (sess, np.concatenate(
+            [first[:, None], sess.generate(EP_STEPS)], axis=1),
+            sess.fingerprint())
+    kv_launches = kv_commit.LAUNCHES["kv_commit"]
+    (_, t1, f1), (_, t2, f2) = served.values()
+    assert np.array_equal(t1, t2) and f1 == f2, "sessions differ"
+    assert ((t1 >= 0) & (t1 < cfg.padded_vocab)).all()
+    assert kv_launches == 2 * EP_STEPS, kv_launches
+    for k, (sess, _, _) in served.items():
+        times[f"decode step {k}"] = median_ms(sess.step)
+    del served, sess, params, local, p, x, ct
+    torch.cuda.empty_cache()
+
+    # c. one pot step with float32 masters, phase 17's batch
+    state = init_state(lm.init_params(gen(SEED), cfg, dtype=torch.float32))
+    batch = family_batch(cfg, seq, rows, 0)
+    steps = {k: make_train_step(cfg, prof=pr, mode="pot",
+                                n_microbatches=TRAIN_MICRO, lr=TRAIN_LR,
+                                wd=TRAIN_WD) for k, pr in profiles.items()}
+    fused_adamw.reset_launches()
+    trained = {}
+    for k, step in steps.items():
+        new, loss = step(state, batch)
+        trained[k] = (loss.view(torch.int32).item(),
+                      tree_digest([new.params, new.opt["m"], new.opt["v"]]))
+        del new
+    adamw_launches = fused_adamw.LAUNCHES["fused_adamw"]
+    n_leaves = len(leaves(state.params))
+    assert trained["schedule"] == trained["dense"], "the train steps differ"
+    assert adamw_launches == 2 * n_leaves, (adamw_launches, n_leaves)
+    assert np.isfinite(np.int32(trained["dense"][0]).view(np.float32))
+    for k, step in steps.items():
+        times[f"train step {k}"] = median_ms(lambda: step(state, batch))
+    del state, steps
+    torch.cuda.empty_cache()
+
+    log(f"moe expert parallelism: world-1 NCCL group, (1, 1) (data, "
+        f"model) mesh; {cfg.name} cut to {cfg.n_layers} layers "
+        f"({cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
+        f"{cfg.capacity_factor}): layer 0 on {rows} x {seq} bf16 tokens, "
+        f"output and dx, router, w1, w3, w2 gradients bitwise equal to "
+        f"the dense path; Session ({EP_SLOTS} slots, {EP_PROMPT}-token "
+        f"prompts, {EP_STEPS} steps) tokens and fingerprint {f1:#010x} "
+        f"bitwise equal, kv_commit launches {kv_launches}; pot step "
+        f"({TRAIN_MICRO} microbatches, {n_leaves} float32 leaves) loss "
+        f"and every parameter and moment leaf bitwise equal, fused_adamw "
+        f"launches {adamw_launches} ({time.perf_counter() - t0:.1f} s)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"  moe expert parallelism ms (median of {EP_TIMED} after one, "
+        f"{smi}): " + "; ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return adamw_launches, kv_launches
 
 
 def phase_dryrun() -> int:
@@ -3460,7 +3609,15 @@ def run_phases(cpu, t_start) -> int:
     phase_dp_train(trained)
     phase_ring()
     launches["fused_adamw"] += phase_train_families()
-    phase_layout()
+    import torch.distributed as dist
+    try:
+        mesh = phase_layout()
+        adamw_ep, kv_ep = phase_moe_ep(mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    launches["fused_adamw"] += adamw_ep
+    launches["kv_commit"] += kv_ep
     launches["fused_adamw"] += phase_dryrun()
     phase_engines(stream[0], cpu["cpu_engines"].get())
     phase_engines_pipelined(stream, cpu["cpu_engines_pipelined"].get())

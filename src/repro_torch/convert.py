@@ -34,9 +34,11 @@ from repro_torch.core.ingress import FormedBatch
 from repro_torch.core.protocol import SpecSeed
 from repro_torch.core.tstore import TStore
 from repro_torch.core.txn import TxnBatch, TxnResult
+from repro_torch.models import lm
 from repro_torch.models.blocks import C
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adafactor import adafactor_init
+from repro_torch.runtime.shardings import SMOKE, Profile
 from repro_torch.train.train_step import TrainState
 from repro_torch.tree import tree_map
 
@@ -144,7 +146,7 @@ def formed_batch_to_numpy(fb: FormedBatch) -> dict:
 
 
 def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda",
-                         dtype=C) -> dict:
+                         dtype=C, prof: Profile = SMOKE) -> dict:
     """The port's LM parameters from the reference's parameter tree as
     numpy (``jax.tree.map(np.asarray, params)``).
 
@@ -154,7 +156,9 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     are unstacked into ``enc_layers``.  Values are stored in ``dtype``:
     bf16 by default, which is what the reference's ``_cast`` makes of
     every float32 parameter at each use, so no bit changes; float32
-    keeps the training path's masters."""
+    keeps the training path's masters.  Under a ``prof`` with a mesh the
+    tree is this rank's (``lm.local_params``): the MoE layers' expert
+    weights cut to the rank's shard, every other leaf whole."""
     def tensor(a):
         return torch.from_numpy(np.array(a, np.float32)).to(
             device=device, dtype=dtype)
@@ -174,7 +178,7 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     if "enc_layers" in tree:
         out["enc_layers"] = unstack(tree["enc_layers"])
         out["enc_norm"] = tensor(tree["enc_norm"])
-    return out
+    return lm.local_params(out, cfg, prof)
 
 
 _KV = ("k", "v", "xk", "xv")
@@ -246,8 +250,8 @@ def _tensors_like(like, src, device, path="stats"):
     return torch.from_numpy(a).to(device)
 
 
-def train_state_from_numpy(tree, cfg: ModelConfig,
-                           device="cuda") -> TrainState:
+def train_state_from_numpy(tree, cfg: ModelConfig, device="cuda",
+                           prof: Profile = SMOKE) -> TrainState:
     """The port's ``TrainState`` from the reference's ``TrainState`` (or a
     mapping with its fields) as numpy: parameters and AdamW moments
     unstacked as :func:`lm_params_from_numpy` unstacks them and kept in
@@ -255,13 +259,19 @@ def train_state_from_numpy(tree, cfg: ModelConfig,
     stacked shapes, the ``tail`` and ``enc_layers`` ones too, as the
     port's Adafactor holds them (a missing or extra statistic, or one of
     another shape, raises ``ValueError``);
-    ``opt["step"]``, ``gv`` and ``step`` as 0-d int32 tensors."""
-    f32 = lambda t: lm_params_from_numpy(t, cfg, device, torch.float32)
+    ``opt["step"]``, ``gv`` and ``step`` as 0-d int32 tensors.  Under a
+    ``prof`` with a mesh, a rank's state: the parameters and moments cut
+    as :func:`lm_params_from_numpy` cuts them (AdamW only, as
+    ``make_train_step`` on a mesh)."""
+    f32 = lambda t: lm_params_from_numpy(t, cfg, device, torch.float32,
+                                         prof)
     i32 = lambda a: torch.tensor(int(np.asarray(a)), dtype=torch.int32,
                                  device=device)
     opt = _field_tree(tree, "opt")
     params = f32(_field_tree(tree, "params"))
     if "stats" in opt:
+        if prof.enabled and prof.mesh is not None:
+            raise ValueError("an Adafactor state does not cut to a rank's")
         like = adafactor_init(params, len(cfg.pattern),
                               len(cfg.tail_pattern))["stats"]
         state = {"stats": _tensors_like(like, opt["stats"], device)}

@@ -25,8 +25,13 @@ rows.  The decode step updates the cache in place.
 
 ``param_specs`` and ``cache_specs`` give the spec trees of both in the
 same layout (``runtime/shardings.py``): the dry run's and a mesh's
-layout; the model functions themselves take no profile, since every
-sharding constraint is the identity on one card.
+layout.  ``forward``, ``prefill``, ``decode_step`` and ``trunk`` take a
+profile (``SMOKE`` by default: one process) and hand it to the MoE
+layer, the only layer that reads the mesh: on a profile with one it
+runs expert parallelism (``models/moe.py``), and a rank's parameter
+tree holds its experts' shards (:func:`local_params`).  The other
+sublayers compute whole on every rank; their tensor and sequence
+parallelism (the reference's ``cons`` in ``_sublayer``) is not ported.
 ``init_params(None, cfg, device="meta")`` builds the parameter tree's
 shapes with no values.
 
@@ -48,7 +53,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import blocks, moe, rglru, ssm
 from repro_torch.models.blocks import C, MetaDraws, _cast, _normal, rmsnorm
 from repro_torch.models.config import ModelConfig
-from repro_torch.runtime.shardings import P, Profile
+from repro_torch.runtime.shardings import SMOKE, P, Profile
 from repro_torch.tree import tree_map
 
 KINDS = ("attn", "local", "mamba", "rglru")
@@ -158,6 +163,18 @@ def param_specs(cfg: ModelConfig, prof: Profile) -> dict:
     return specs
 
 
+def local_params(params, cfg: ModelConfig, prof: Profile) -> dict:
+    """The parameter tree a rank holds under ``prof``: each MoE layer's
+    expert weights cut to the rank's shard (``moe.local_moe``), every
+    other leaf the same tensor; ``params`` itself where the profile has
+    no mesh."""
+    if not prof.enabled or prof.mesh is None or not cfg.n_experts:
+        return params
+    cut = lambda p: (dict(p, moe=moe.local_moe(p["moe"], cfg, prof))
+                     if "moe" in p else p)
+    return dict(params, layers=[cut(p) for p in params["layers"]])
+
+
 def params_to(params, device, dtype=None):
     """A copy of a parameter or cache tree (dicts and lists of tensors)
     on ``device``, cast to ``dtype`` where one is given."""
@@ -195,8 +212,8 @@ def _cache_rows(k, v, kind: str, cfg: ModelConfig, max_seq: int) -> dict:
     return {"k": k, "v": v}
 
 
-def _sublayer(p, x, *, kind, cfg: ModelConfig, positions, enc, causal,
-              chunk, collect, max_seq):
+def _sublayer(p, x, *, kind, cfg: ModelConfig, prof: Profile = SMOKE,
+              positions, enc, causal, chunk, collect, max_seq):
     """One layer over x (B, S, D), its weights cast to x's dtype here (so
     a rematerialised layer recasts them instead of keeping them).
     Returns (x, the layer's decode cache or None)."""
@@ -232,14 +249,14 @@ def _sublayer(p, x, *, kind, cfg: ModelConfig, positions, enc, causal,
         x = x + h
     if "mlp" in p or "moe" in p:
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + (moe.moe_apply(p["moe"], h, cfg) if "moe" in p
+        x = x + (moe.moe_apply(p["moe"], h, cfg, prof) if "moe" in p
                  else blocks.mlp_apply(p["mlp"], h, cfg))
     return x, new_c
 
 
-def trunk(params, x, cfg: ModelConfig, *, positions, enc=None, causal=True,
-          chunk=0, remat=False, collect=False, max_seq=0,
-          layers_key="layers"):
+def trunk(params, x, cfg: ModelConfig, prof: Profile = SMOKE, *, positions,
+          enc=None, causal=True, chunk=0, remat=False, collect=False,
+          max_seq=0, layers_key="layers"):
     """The layers of ``params[layers_key]`` over x (B, S, D) (the
     encoder's are all ``"attn"``).  ``remat`` recomputes each layer in
     the backward pass instead of keeping its activations
@@ -250,9 +267,9 @@ def trunk(params, x, cfg: ModelConfig, *, positions, enc=None, causal=True,
         layers)
     caches = []
     for p, kind in zip(layers, kinds, strict=True):
-        layer = partial(_sublayer, kind=kind, cfg=cfg, positions=positions,
-                        enc=enc, causal=causal, chunk=chunk, collect=collect,
-                        max_seq=max_seq)
+        layer = partial(_sublayer, kind=kind, cfg=cfg, prof=prof,
+                        positions=positions, enc=enc, causal=causal,
+                        chunk=chunk, collect=collect, max_seq=max_seq)
         if remat:
             x, c = checkpoint(layer, p, x, use_reentrant=False)
         else:
@@ -291,8 +308,8 @@ def encode(params, frames, cfg: ModelConfig, *, remat=False):
     return rmsnorm(x, params["enc_norm"].to(x.dtype), cfg.norm_eps)
 
 
-def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
-            enc=None, chunk=0, remat=False):
+def forward(params, tokens, cfg: ModelConfig, prof: Profile = SMOKE, *,
+            prefix_embeds=None, enc=None, chunk=0, remat=False):
     """tokens (B, S_t) int -> logits (B, S_total, padded_vocab) in bf16.
 
     ``prefix_embeds`` (B, Np, D): stub frontend output (vision patches),
@@ -301,13 +318,13 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
     :func:`repro_torch.models.blocks.attend_full`."""
     x = _embed(params, tokens, prefix_embeds, C)
     b, s, _ = x.shape
-    x = trunk(params, x, cfg, positions=_positions(b, s, x.device), enc=enc,
-              chunk=chunk, remat=remat)
+    x = trunk(params, x, cfg, prof, positions=_positions(b, s, x.device),
+              enc=enc, chunk=chunk, remat=remat)
     return _logits(params, x, cfg)
 
 
-def prefill(params, tokens, cfg: ModelConfig, *, max_seq: int = 0,
-            prefix_embeds=None, enc=None, chunk=0):
+def prefill(params, tokens, cfg: ModelConfig, prof: Profile = SMOKE, *,
+            max_seq: int = 0, prefix_embeds=None, enc=None, chunk=0):
     """Process a whole prompt in the parameters' dtype; return the last
     position's logits (B, 1, padded_vocab) and the decode cache.
 
@@ -317,7 +334,8 @@ def prefill(params, tokens, cfg: ModelConfig, *, max_seq: int = 0,
     layer the K/V of ``enc``."""
     x = _embed(params, tokens, prefix_embeds, params["embed"].dtype)
     b, s, _ = x.shape
-    x, cache = trunk(params, x, cfg, positions=_positions(b, s, x.device),
+    x, cache = trunk(params, x, cfg, prof,
+                     positions=_positions(b, s, x.device),
                      enc=enc, chunk=chunk, collect=True,
                      max_seq=max(max_seq, s))
     return _logits(params, x[:, -1:], cfg), cache
@@ -390,7 +408,8 @@ def _local_decode(p, x, c, pos, cfg: ModelConfig):
     return out.reshape(b, 1, h * hd) @ p["wo"]
 
 
-def decode_layer(p, x, c, kind: str, pos, cfg: ModelConfig):
+def decode_layer(p, x, c, kind: str, pos, cfg: ModelConfig,
+                 prof: Profile = SMOKE):
     """One layer of a decode step in the parameters' dtype: x (B, 1, D)
     -> the layer's output, its cache ``c`` updated in place."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
@@ -410,17 +429,18 @@ def decode_layer(p, x, c, kind: str, pos, cfg: ModelConfig):
         x = x + h
     if "mlp" in p or "moe" in p:
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + (moe.moe_apply(p["moe"], h, cfg) if "moe" in p
+        x = x + (moe.moe_apply(p["moe"], h, cfg, prof) if "moe" in p
                  else blocks.mlp_apply(p["mlp"], h, cfg))
     return x
 
 
-def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
+def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
+                prof: Profile = SMOKE):
     """One decode step in the parameters' dtype.  tokens (B, 1) int, pos
     (B,) int (position of the new token).  Returns (logits (B, 1,
     padded_vocab), cache), the cache updated in place."""
     x = params["embed"][tokens]                              # (B, 1, D)
     for p, kind, c in zip(params["layers"], layer_kinds(cfg), cache,
                           strict=True):
-        x = decode_layer(p, x, c, kind, pos, cfg)
+        x = decode_layer(p, x, c, kind, pos, cfg, prof)
     return _logits(params, x, cfg), cache

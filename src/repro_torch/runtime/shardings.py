@@ -19,8 +19,13 @@ name, a tuple of axis names (one tensor dim over several mesh dims,
 major to minor) or ``None`` (replicated); a spec shorter than its
 tensor's rank leaves the trailing dims replicated.
 :func:`to_placements` turns one into the ``torch.distributed.tensor``
-placements of a ``DeviceMesh``.  The port's model functions take no
-profile: on one card every constraint is the identity.
+placements of a ``DeviceMesh``, and :func:`local_shard` cuts a rank's
+shard of a whole tensor.  Of the model functions only the MoE layer
+reads the mesh (expert parallelism, ``models/moe.py``): ``lm.forward``,
+``prefill``, ``decode_step``, the train step and the serving session
+take a profile and hand it to it.  Tensor and sequence parallelism of
+the other sublayers (the reference's ``cons`` in ``lm._sublayer``) is
+not ported; every rank computes those whole.
 """
 
 from __future__ import annotations
@@ -170,7 +175,9 @@ def norm_spec(spec, ndim: int) -> tuple:
     return spec + (None,) * (ndim - len(spec))
 
 
-def _axes(entry) -> tuple:
+def axis_names(entry) -> tuple:
+    """The mesh axes of one spec entry: an axis name, a tuple of them or
+    ``None`` (none)."""
     if entry is None:
         return ()
     return tuple(entry) if isinstance(entry, tuple) else (entry,)
@@ -182,7 +189,7 @@ def shard_dims(spec, names, ndim: int) -> list:
     the mesh's order, the first the most major."""
     owner = [None] * len(names)
     for dim, entry in enumerate(norm_spec(spec, ndim)):
-        axes = _axes(entry)
+        axes = axis_names(entry)
         idx = [names.index(a) if a in names else -1 for a in axes]
         if -1 in idx:
             raise ValueError(f"spec {spec}: axis not in the mesh {names}")
@@ -208,14 +215,46 @@ def to_placements(spec, mesh, ndim: int) -> tuple:
                  for d in shard_dims(spec, tuple(mesh.mesh_dim_names), ndim))
 
 
+def _cuts(spec, axis_sizes: dict, ndim: int, coord=None) -> list:
+    """How ``spec`` cuts each dim of a tensor of ``ndim`` dims over a
+    mesh of ``axis_sizes`` (axis name -> size, in the mesh's order): per
+    dim, (ways, index), the product of the sizes of the axes sharding it
+    and the block that the mesh coordinate ``coord`` (all zeros where
+    not given) holds over them, major to minor."""
+    names = tuple(axis_sizes)
+    coord = coord or (0,) * len(names)
+    cuts = [(1, 0)] * ndim
+    for i, d in enumerate(shard_dims(spec, names, ndim)):
+        if d is not None:
+            ways, index = cuts[d]
+            n = axis_sizes[names[i]]
+            cuts[d] = (ways * n, index * n + coord[i])
+    return cuts
+
+
 def local_shape(shape, spec, axis_sizes: dict) -> tuple:
     """The largest local shard's shape of a tensor of ``shape`` laid out
     by ``spec`` over a mesh of ``axis_sizes`` (axis name -> size, in the
     mesh's order): each dim divided, rounding up, by the product of the
     sizes of the axes it is sharded over."""
-    names = tuple(axis_sizes)
-    ways = [1] * len(shape)
-    for i, d in enumerate(shard_dims(spec, names, len(shape))):
-        if d is not None:
-            ways[d] *= axis_sizes[names[i]]
-    return tuple(-(-n // w) for n, w in zip(shape, ways))
+    return tuple(-(-n // w) for n, (w, _) in
+                 zip(shape, _cuts(spec, axis_sizes, len(shape))))
+
+
+def local_shard(t, spec, mesh):
+    """This rank's shard of the whole tensor ``t`` laid out by ``spec`` on
+    ``mesh`` (a ``DeviceMesh``): along each dim, the block of the rank's
+    coordinate over the axes sharding it (major to minor in the mesh's
+    order), of :func:`local_shape`'s size; ``t`` itself where no dim is
+    cut.  A dim that its axes do not divide raises ``ValueError``."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    out = t
+    for dim, (w, i) in enumerate(_cuts(spec, sizes, t.ndim,
+                                       mesh.get_coordinate())):
+        if w > 1:
+            if t.shape[dim] % w:
+                raise ValueError(f"spec {spec}: dim {dim} of {t.shape[dim]} "
+                                 f"does not split over {w} ranks")
+            n = t.shape[dim] // w
+            out = out.narrow(dim, i * n, n)
+    return t if out is t else out.clone()

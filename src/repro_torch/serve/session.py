@@ -19,6 +19,13 @@ As in the reference: every slot decodes each step (the batch is
 ``slot * (max_seq // page_size) + pos // page_size``, so past
 ``max_seq`` it runs into the next slot's pages (and past the last page
 it is dropped); greedy decoding takes the argmax over the padded vocab.
+
+``prof`` (``SMOKE`` by default) goes to ``lm.decode_step`` and
+``lm.prefill``: with a mesh in it, the MoE layers run expert
+parallelism and ``params`` is a rank's tree (``lm.local_params``);
+every rank holds the same whole session and emits the same tokens.
+:meth:`Session.prefill` admits a prompt in every slot at once, a step
+the reference's session does not have.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from repro_torch.core.sequencer import RoundRobinSequencer
 from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.shardings import SMOKE, Profile
 
 META_WIDTH = 8   # float32 entries of one page row
 
@@ -44,6 +52,7 @@ class Session:
     max_seq: int
     page_size: int = 16
     device: str | torch.device = "cuda"
+    prof: Profile = SMOKE
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -62,7 +71,8 @@ class Session:
                                          device=self.device)
 
     def _decode(self, params, cache, tokens, pos):
-        return lm.decode_step(params, cache, tokens, pos, self.cfg)
+        return lm.decode_step(params, cache, tokens, pos, self.cfg,
+                              self.prof)
 
     def add_request(self, slot: int, first_token: int) -> None:
         if self.active[slot]:
@@ -70,6 +80,31 @@ class Session:
         self.active[slot] = True
         self.tokens[slot, 0] = first_token
         self.pos[slot] = 0
+
+    def prefill(self, prompts) -> np.ndarray:
+        """Admit a prompt in every slot at once: ``prompts`` (n_slots, P)
+        int through ``lm.prefill``, whose cache rows fill the first rows
+        of each layer's cache (in place).  Every slot becomes active at
+        position P with its greedy next token, which is returned; the
+        prompt's rows commit no page metadata."""
+        if self.active.any():
+            raise ValueError("prefill admits every slot; some already "
+                             "hold requests")
+        prompts = torch.as_tensor(prompts, device=self.device)
+        n, p = prompts.shape
+        if n != self.n_slots or p > self.max_seq:
+            raise ValueError(f"prompts of shape {(n, p)} for {self.n_slots} "
+                             f"slots of max_seq {self.max_seq}")
+        logits, cache = lm.prefill(self.params, prompts, self.cfg, self.prof,
+                                   max_seq=self.max_seq)
+        for dst, src in zip(self.cache, cache, strict=True):
+            for name, t in src.items():
+                dst[name][:, :t.shape[1]].copy_(t)
+        nxt = torch.argmax(logits[:, 0], dim=-1)
+        self.tokens = nxt[:, None]
+        self.pos[:] = p
+        self.active[:] = True
+        return nxt.cpu().numpy().astype(np.int32)
 
     def step(self) -> np.ndarray:
         """One decode round: model math + ordered page-commit of every

@@ -23,9 +23,17 @@ same whatever the arrival timing.
 
 Parameters are float32 master weights; the model casts them to bf16 at
 use.  A step returns ``(new_state, loss)`` and leaves the state it was
-given as it was.  The optimizer is AdamW or Adafactor.  The reference's
-sharding hooks (``prof``, ``grad_specs``) are identities on one card and
-are left out.  ``make_train_step`` and ``make_pot_dp_step`` train all
+given as it was.  The optimizer is AdamW or Adafactor.
+``make_train_step`` takes the reference's profile (``prof``, ``SMOKE``
+by default) and hands it to the model, where only the MoE layer reads
+its mesh: on one, every rank holds the same state but its own experts'
+shards (``lm.local_params``), computes the same loss from the whole
+batch, and the schedule's gradient sums (``models/moe.py``) leave each
+leaf's gradient whole and equal on every rank, an expert shard's that
+of the shard; each rank then commits its own leaves with AdamW.  Tensor
+and sequence parallelism of the other sublayers is not ported, and the
+reference's ``grad_specs`` pins have nothing to pin.
+``make_train_step`` and ``make_pot_dp_step`` train all
 ten architectures: every layer kind (``"attn"``, ``"local"``,
 ``"mamba"``, ``"rglru"``), dense and MoE MLPs, internvl2's ``patches``
 and whisper's ``frames`` (through ``lm.encode``).  A MoE layer takes
@@ -45,6 +53,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim import (adafactor_init, adafactor_update, adamw_init,
                                adamw_update, ordered_ring_reduce)
 from repro_torch.optim.ordered_reduce import ring_position
+from repro_torch.runtime.shardings import SMOKE, Profile
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -90,14 +99,16 @@ def init_state(params, optimizer="adamw", *,
     return TrainState(params=params, opt=opt, gv=zero(), step=zero())
 
 
-def loss_fn(params, batch, cfg: ModelConfig, *, chunk=0, remat=True):
+def loss_fn(params, batch, cfg: ModelConfig, *, prof: Profile = SMOKE,
+            chunk=0, remat=True):
     """Next-token cross-entropy, averaged over the labels >= 0.  batch:
     {tokens (B, S), labels (B, S)} plus optional {frames} (whisper, the
-    encoder's input) and {patches} (internvl2)."""
+    encoder's input) and {patches} (internvl2); ``prof`` goes to
+    ``lm.forward``."""
     enc = None
     if cfg.encoder_layers:
         enc = lm.encode(params, batch["frames"], cfg, remat=remat)
-    logits = lm.forward(params, batch["tokens"], cfg,
+    logits = lm.forward(params, batch["tokens"], cfg, prof,
                         prefix_embeds=batch.get("patches"), enc=enc,
                         chunk=chunk, remat=remat)
     labels = batch["labels"]
@@ -151,15 +162,22 @@ def _accumulate(loss, params, batch, n_microbatches: int):
             tree_map(lambda g: g.div_(n_microbatches), gsum))
 
 
-def make_train_step(cfg: ModelConfig, *, optimizer="adamw",
-                    mode: str = "baseline", n_microbatches: int = 1,
-                    chunk=0, remat=True, lr=1e-3, wd=0.01):
+def make_train_step(cfg: ModelConfig, *, prof: Profile = SMOKE,
+                    optimizer="adamw", mode: str = "baseline",
+                    n_microbatches: int = 1, chunk=0, remat=True, lr=1e-3,
+                    wd=0.01):
     """A train step ``step(state, batch) -> (state', loss)``.  mode:
-    ``"baseline"`` | ``"pot"``."""
+    ``"baseline"`` | ``"pot"``.  With a mesh in ``prof`` the state is a
+    rank's (module docstring) and the optimizer AdamW: Adafactor's
+    factored statistics of an expert shard would be the shard's, not
+    the whole leaf's."""
     upd = _optimizer(optimizer, lr, wd)
     if mode not in ("baseline", "pot"):
         raise ValueError(f"mode must be 'baseline' or 'pot', got {mode!r}")
-    loss = partial(loss_fn, cfg=cfg, chunk=chunk, remat=remat)
+    if optimizer != "adamw" and prof.enabled and prof.mesh is not None:
+        raise ValueError(f"a step on a mesh takes 'adamw', got "
+                         f"{optimizer!r}")
+    loss = partial(loss_fn, cfg=cfg, prof=prof, chunk=chunk, remat=remat)
 
     def baseline_step(state: TrainState, batch):
         value, grads = _value_and_grad(loss, state.params, batch)

@@ -2,6 +2,7 @@
 CPU).  Spawned children import this module by name, so it imports
 neither JAX nor the reference package."""
 
+import contextlib
 import time
 
 import numpy as np
@@ -186,4 +187,246 @@ def mesh_worker(rank, world, init, out):
     named = make_host_mesh(world, axis="shard", device_type="cpu")
     assert named.mesh_dim_names == ("shard",)
     open(f"{out}.{rank}", "w").close()
+    dist.destroy_process_group()
+
+
+def _mesh_profile(shape):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.runtime.shardings import Profile
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    return mesh, Profile(mesh=mesh)
+
+
+def _f32_models():
+    from repro_torch.models import blocks, lm, moe, rglru, ssm
+    for m in (blocks, lm, ssm, rglru, moe):
+        m.C = torch.float32
+
+
+@contextlib.contextmanager
+def _routing(rec: list):
+    """Within the block, each routing of the port's MoE layer appends
+    (expert index (T*k,), kept (T*k,)) to ``rec``."""
+    from repro_torch.models import moe
+    orig = moe.dispatch_positions
+
+    def recording(flat_e, e, cap):
+        pos, keep = orig(flat_e, e, cap)
+        rec.append((flat_e.numpy().copy(), keep.numpy().copy()))
+        return pos, keep
+    moe.dispatch_positions = recording
+    try:
+        yield rec
+    finally:
+        moe.dispatch_positions = orig
+
+
+def _moe_ep_layer(case, cfg, prof) -> dict:
+    from repro_torch import convert
+    from repro_torch.models import moe
+    params = convert.lm_params_from_numpy(case["params"], cfg, "cpu",
+                                          torch.float32, prof)
+    p = {k: v.requires_grad_(True) if k in ("router",) + moe.EXPERT_LEAVES
+         else v for k, v in params["layers"][0]["moe"].items()}
+    x = torch.from_numpy(case["x"]).requires_grad_(True)
+    with _routing([]) as rec:
+        y = moe.moe_apply(p, x, cfg, prof)
+    names = ("x", "router") + moe.EXPERT_LEAVES
+    grads = torch.autograd.grad(y, [x] + [p[n] for n in names[1:]],
+                                torch.from_numpy(case["ct"]))
+    return dict(y=y.detach().numpy(), routing=rec,
+                grads={n: g.numpy() for n, g in zip(names, grads)})
+
+
+def _moe_ep_model(case, cfg, prof) -> dict:
+    from repro_torch import convert
+    from repro_torch.models import lm
+    from repro_torch.serve.session import Session
+    params = convert.lm_params_from_numpy(case["params"], cfg, "cpu",
+                                          torch.float32, prof)
+    tokens = torch.from_numpy(case["tokens"])
+    out = {}
+    with torch.no_grad():
+        with _routing([]) as rec:
+            out["logits"] = lm.forward(params, tokens, cfg, prof).numpy()
+        out["forward_routing"] = rec
+        out["prefill"] = lm.prefill(params, tokens, cfg, prof)[0].numpy()
+        cache = convert.lm_cache_from_numpy(case["cache"], cfg, "cpu",
+                                            torch.float32)
+        with _routing([]) as rec:
+            logits, cache = lm.decode_step(
+                params, cache, torch.from_numpy(case["dec_tokens"]),
+                torch.from_numpy(case["pos"]), cfg, prof)
+        out["decode"] = logits.numpy()
+        out["decode_routing"] = rec
+        sess = Session(cfg, params, n_slots=tokens.shape[0], max_seq=32,
+                       device="cpu", prof=prof)
+        first = sess.prefill(tokens[:, :8])
+        out["session"] = np.concatenate([first[:, None], sess.generate(4)],
+                                        axis=1)
+        out["fingerprint"] = sess.fingerprint()
+    return out
+
+
+def _moe_ep_train(case, cfg, prof, delayed: bool) -> dict:
+    from repro_torch import convert
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves
+    state = convert.train_state_from_numpy(case["state"], cfg, "cpu", prof)
+    step = make_train_step(cfg, prof=prof, mode="pot", n_microbatches=2,
+                           lr=case["lr"])
+    grad = torch.autograd.grad
+    if delayed:     # this rank joins each backward 0.2 s late
+
+        def late(*args, **kwargs):
+            time.sleep(0.2)
+            return grad(*args, **kwargs)
+        torch.autograd.grad = late
+    try:
+        new, loss = step(state, {k: torch.from_numpy(v)
+                                 for k, v in case["batch"].items()})
+    finally:
+        torch.autograd.grad = grad
+    return dict(loss=loss.numpy(), counters=[int(new.gv), int(new.step)],
+                leaves=[t.numpy() for t in leaves([new.params, new.opt])])
+
+
+def _refusals(prof) -> dict:
+    """The messages of what the schedule refuses on this mesh."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.train import make_train_step
+    cfg = get_smoke_config("deepseek-moe-16b")
+    gen = torch.Generator().manual_seed(0)
+    p = moe.local_moe(moe.init_moe(gen, cfg, torch.float32), cfg, prof)
+    x = lambda b, s, grad=False: torch.zeros(
+        (b, s, cfg.d_model), requires_grad=grad)
+    six = dataclasses.replace(cfg, n_experts=6)
+    calls = {
+        "experts": lambda: moe.moe_apply(moe.init_moe(gen, six, torch.float32),
+                                         x(4, 8), six, prof),
+        "batch": lambda: moe.moe_apply(p, x(3, 8), cfg, prof),
+        "whole": lambda: moe.moe_apply(moe.init_moe(gen, cfg, torch.float32),
+                                       x(4, 8), cfg, prof),
+        "gradient": lambda: moe.moe_apply(p, x(4, 1, True), cfg, prof),
+        "fsdp": lambda: moe.moe_apply(
+            p, x(4, 8), cfg, dataclasses.replace(prof, fsdp=False)),
+        "adafactor": lambda: make_train_step(cfg, prof=prof,
+                                             optimizer="adafactor"),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def moe_ep_worker(rank, world, init, inputs, out, parts):
+    """The port's expert-parallel MoE on a (2, 4) ("data", "model") mesh
+    of gloo ranks, in float32 (``C`` set in the port's model modules),
+    for each case of the pickled ``inputs`` ((arch, capacity factor) ->
+    the reference's numpy weights and the inputs): ``parts`` of "layer"
+    (output, gradients, routing), "model" (``lm.forward`` and its
+    routing, ``lm.prefill``, one ``decode_step`` and its routing, a
+    ``Session`` prefill and 4 steps), "train" (one pot step, AdamW, 2
+    microbatches, twice: the second time the rank at data 1, model 0
+    joins each backward late) and "refusals".  Rank r writes
+    ``{out}.{r}.pkl``."""
+    import dataclasses
+    import pickle
+
+    from repro_torch.configs import get_smoke_config
+    _join(rank, world, init)
+    _f32_models()
+    mesh, prof = _mesh_profile((2, world // 2))
+    with open(inputs, "rb") as f:
+        cases = pickle.load(f)
+    result = {"coord": tuple(mesh.get_coordinate())}
+    for (arch, cf), case in cases.items():
+        cfg = get_smoke_config(arch)
+        if cf is not None:
+            cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        got = {}
+        if "layer" in parts:
+            got["layer"] = _moe_ep_layer(case, cfg, prof)
+        if "model" in parts:
+            got["model"] = _moe_ep_model(case, cfg, prof)
+        if "train" in parts:
+            late = result["coord"] == (1, 0)
+            got["train"] = [_moe_ep_train(case, cfg, prof, d and late)
+                            for d in (False, True)]
+        result[(arch, cf)] = got
+    if "refusals" in parts:
+        result["refusals"] = _refusals(prof)
+    with open(f"{out}.{rank}.pkl", "wb") as f:
+        pickle.dump(result, f)
+    dist.destroy_process_group()
+
+
+def moe_ep_world1_worker(rank, world, init, archs, out):
+    """One gloo rank, a (1, 1) mesh: in bf16, for each arch of ``archs``
+    at capacity factor 1.0, the MoE layer's output and gradients,
+    ``lm.forward``, ``lm.prefill``, a ``decode_step``, a ``Session``
+    (prefill and 4 steps) and one pot train step (AdamW, 2 microbatches)
+    through the schedule, each bitwise equal to the dense path.  Writes
+    the file ``{out}`` when all hold."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm, moe
+    from repro_torch.runtime.shardings import SMOKE
+    from repro_torch.serve.session import Session
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import leaves
+    _join(rank, world, init)
+    _, prof = _mesh_profile((1, 1))
+    bits = lambda t: t.view(torch.int16 if t.element_size() == 2 else
+                            torch.int32) if t.is_floating_point() else t
+    same = lambda a, b: len(a) == len(b) and all(
+        torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+    for arch in archs:
+        cfg = dataclasses.replace(get_smoke_config(arch), capacity_factor=1.0)
+        gen = lambda s: torch.Generator().manual_seed(s)
+        master = lm.init_params(gen(0), cfg, dtype=torch.float32)
+        params = lm.init_params(gen(0), cfg)
+        x = torch.randn((4, 32, cfg.d_model), generator=gen(1)).to(lm.C)
+        ct = torch.randn((4, 32, cfg.d_model), generator=gen(2)).to(lm.C)
+        tokens = torch.randint(0, cfg.vocab, (4, 32), generator=gen(3))
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+        runs = []
+        for pr in (SMOKE, prof):
+            run = []
+            p = {k: v.detach().clone().requires_grad_(True)
+                 if torch.is_tensor(v) else v
+                 for k, v in master["layers"][0]["moe"].items()}
+            xg = x.clone().requires_grad_(True)
+            y = moe.moe_apply(p, xg, cfg, pr)
+            run += [y, *torch.autograd.grad(
+                y, [xg] + [p[n] for n in ("router",) + moe.EXPERT_LEAVES],
+                ct)]
+            with torch.no_grad():
+                run.append(lm.forward(params, tokens, cfg, pr))
+                logits, cache = lm.prefill(params, tokens, cfg, pr,
+                                           max_seq=40)
+                pos = torch.full((4,), 32)
+                run += [logits, *lm.decode_step(params, cache, tokens[:, :1],
+                                                pos, cfg, pr)[:1]]
+                sess = Session(cfg, params, n_slots=4, max_seq=32,
+                               device="cpu", prof=pr)
+                run += [torch.from_numpy(sess.prefill(tokens[:, :8])),
+                        torch.from_numpy(sess.generate(4)),
+                        torch.tensor(sess.fingerprint())]
+            step = make_train_step(cfg, prof=pr, mode="pot",
+                                   n_microbatches=2)
+            new, loss = step(init_state(master), batch)
+            run += [loss, *leaves([new.params, new.opt])]
+            runs.append([t.detach() for t in run])
+        assert same(*runs), f"{arch}: the schedule differs from the dense path"
+    open(out, "w").close()
     dist.destroy_process_group()
