@@ -277,6 +277,25 @@ Phases, each printing its own lines:
    launched once a leaf a step; the medians of 5 after a warm-up of the
    layer's forward and forward plus backward, a decode step and a train
    step, each with and without the profile;
+19. (run after 18c, on its world-1 NCCL group) this slice's SPMD paths
+   at world 1, each check bitwise against the dense path: a. the store
+   one shard per rank (``PotSession(shards=1, mesh=)`` on a 1-D
+   ("shard",) mesh of the card: a one-shard store with a mesh takes the
+   sharded paths, its loads through the rank exchange): the main path's
+   first batch (phase 3's configuration, K = 1,024, O = 1,048,576), its
+   every trace field and replay log equal to phase 3's dense session's
+   first batch, its store and fingerprint to the numpy serial oracle
+   after that batch (the image phase 4 holds the dense session to), the
+   pair and delta kernels launched, s per batch beside the dense run's;
+   b. tensor and sequence parallelism of the attention and MLP
+   sublayers: stablelm-12b at full width cut to 2 layers on phase 18a's
+   (1, 1) mesh with ``Profile(mesh=)`` against ``SMOKE``: ``forward``'s
+   logits and ``prefill``'s logits and cache on 8 x 128 bf16 tokens, a
+   ``Session`` (8 slots, 64-token prompts, 16 steps: tokens and
+   fingerprint, kv_commit launched once a step) and one pot step (AdamW,
+   2 microbatches, float32 masters: loss and every parameter and moment
+   leaf, fused_adamw launched once a leaf), bitwise equal; the medians
+   of 5 after a warm-up of each, with and without the profile;
 10b. (run last) each engine pipelined: ``run_stream`` at
    ``pipeline_depth=2`` over the first 256 rows of the stream's first
    three batches on the card, equal to the same engine's serial run on the card
@@ -384,6 +403,9 @@ PEAK_RANGE = (0.67, 1.5)  # predicted / measured peak per card
 # phase 18c: expert parallelism at world 1 on DRYRUN_CELLS[0]
 EP_SLOTS, EP_PROMPT, EP_STEPS, EP_MAX_SEQ = 8, 64, 16, 128
 EP_TIMED = 5            # medians of 5 after one warm-up
+# phase 19b: tensor and sequence parallelism at world 1, stablelm-12b at
+# full width cut to 2 layers; its session and prompt as phase 18c's
+TP_ARCH, TP_LAYERS, TP_ROWS, TP_SEQ = "stablelm-12b", 2, 8, 128
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 x
@@ -3437,6 +3459,177 @@ def phase_moe_ep(mesh) -> tuple[int, int]:
     return adamw_launches, kv_launches
 
 
+def phase_store_mesh(wls, dense) -> dict[str, int]:
+    """Phase 19a: the main path's first batch through a store cut one
+    shard per rank over a 1-D mesh of this world-1 group, held to phase
+    3's dense session and the numpy serial oracle.  Returns the conflict
+    kernels' launches of that run."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import convert
+    from repro_torch.core import oracle
+    from repro_torch.core.engine import TRACE_FIELDS
+    from repro_torch.core.sequencer import RoundRobinSequencer
+    from repro_torch.core.session import PotSession
+    from repro_torch.core.tstore import (TStore, fingerprint,
+                                         unshard_store)
+    from repro_torch.kernels import conflict
+
+    wl = wls[0]
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("shard",))
+    s = PotSession(N_OBJECTS, engine="pcc", n_lanes=N_LANES, shards=1,
+                   mesh=mesh, device="cuda")
+    assert s.store.layout.sharded and tuple(s.store.values.shape) == (
+        1, N_OBJECTS, 1)
+    torch.cuda.synchronize()
+    conflict.reset_launches()
+    traces, seconds = timed(lambda: s.run_stream([wl.batch], [wl.lanes]))
+    launches = dict(conflict.LAUNCHES)
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched on the mesh store's path"
+    got = convert.trace_to_numpy(traces[0])
+    for f in TRACE_FIELDS:
+        assert np.array_equal(got[f], dense["traces"][0][f]), f"mesh {f}"
+    replay = s.replay_log()
+    assert replay == dense["replay_log"][:len(replay)] and len(replay) == K
+    values, versions, gv = oracle.serial_execute(
+        np.zeros((N_OBJECTS, 1), np.int32), np.zeros(N_OBJECTS, np.int32),
+        0, [convert.batch_to_numpy(wl.batch)],
+        [RoundRobinSequencer(n_root_lanes=N_LANES).order_for(
+            wl.lanes.tolist())])
+    flat = unshard_store(s.store)
+    assert np.array_equal(flat.values.cpu().numpy(), values)
+    assert np.array_equal(flat.versions.cpu().numpy(), versions)
+    assert int(flat.gv) == gv == K
+    fp = s.fingerprint()
+    assert fp == fingerprint(TStore(*(torch.from_numpy(a) for a in (
+        values, versions, np.asarray(gv, np.int32))))), "mesh fingerprint"
+    per_dense = dense["seconds"] / MAIN_PATH_BATCHES
+    log(f"mesh store: {K} txns, O={N_OBJECTS} as 1 shard on a 1-D (shard,) "
+        f"mesh of the world-1 NCCL group: {seconds:.3f} s a batch against "
+        f"the dense run's {per_dense:.3f} s ({seconds / per_dense:.3f} x); "
+        f"rounds {int(traces[0].rounds)}; every trace field and the replay "
+        f"log equal to phase 3's first batch, store and fingerprint "
+        f"{fp:#010x} equal to the serial oracle's; launches {launches}")
+    log(f"  by shape: {shape_counts()}")
+    return launches
+
+
+def phase_tp(mesh) -> tuple[int, int]:
+    """Phase 19b: the attention and MLP sublayers tensor- and
+    sequence-parallel at world 1 on phase 18a's mesh, each check bitwise
+    against the dense path.  Returns the fused AdamW and kv_commit
+    kernels' launches of the compared train steps and sessions."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_adamw, kv_commit
+    from repro_torch.models import lm
+    from repro_torch.runtime.shardings import SMOKE, Profile
+    from repro_torch.serve.session import Session
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    prof = Profile(mesh=mesh)
+    cfg = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS)
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+    bits = lambda t: t.view(torch.int16 if t.element_size() == 2 else
+                            torch.int32) if t.is_floating_point() else t
+    same = lambda a, b: len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+    profiles = {"tensor parallel": prof, "dense": SMOKE}
+    times = {}
+
+    # a. forward and prefill, bf16 weights
+    params = lm.init_params(gen(SEED), cfg)
+    local = lm.local_params(params, cfg, prof)
+    assert all(a is b for a, b in zip(leaves(local), leaves(params),
+                                      strict=True)), "a world-1 shard is cut"
+    tokens = torch.randint(0, cfg.vocab, (TP_ROWS, TP_SEQ),
+                           generator=gen(SEED + 4), device="cuda")
+
+    def forward(pr):
+        with torch.no_grad():
+            return lm.forward(params, tokens, cfg, pr)
+
+    def prefill(pr):
+        with torch.no_grad():
+            logits, cache = lm.prefill(params, tokens, cfg, pr,
+                                       max_seq=EP_MAX_SEQ + TP_SEQ)
+        return [logits] + [t for c in cache for t in c.values()]
+
+    assert same([forward(prof)], [forward(SMOKE)]), "forward differs"
+    assert same(prefill(prof), prefill(SMOKE)), "prefill differs"
+    for k, pr in profiles.items():
+        times[f"forward {k}"] = median_ms(lambda: forward(pr))
+        times[f"prefill {k}"] = median_ms(lambda: prefill(pr))
+
+    # b. serving: prefill of a prompt a slot, then greedy steps
+    prompts = torch.randint(0, cfg.vocab, (EP_SLOTS, EP_PROMPT),
+                            generator=gen(SEED + 3), device="cuda")
+    kv_commit.reset_launches()
+    served = {}
+    for k, pr in profiles.items():
+        sess = Session(cfg, params, n_slots=EP_SLOTS, max_seq=EP_MAX_SEQ,
+                       device="cuda", prof=pr)
+        first = sess.prefill(prompts)
+        served[k] = (sess, np.concatenate(
+            [first[:, None], sess.generate(EP_STEPS)], axis=1),
+            sess.fingerprint())
+    kv_launches = kv_commit.LAUNCHES["kv_commit"]
+    (_, t1, f1), (_, t2, f2) = served.values()
+    assert np.array_equal(t1, t2) and f1 == f2, "sessions differ"
+    assert ((t1 >= 0) & (t1 < cfg.padded_vocab)).all()
+    assert kv_launches == 2 * EP_STEPS, kv_launches
+    for k, (sess, _, _) in served.items():
+        times[f"decode step {k}"] = median_ms(sess.step)
+    del served, sess, params, local
+    torch.cuda.empty_cache()
+
+    # c. one pot step with float32 masters
+    state = init_state(lm.init_params(gen(SEED), cfg, dtype=torch.float32))
+    batch = family_batch(cfg, TP_SEQ, TP_ROWS, 0)
+    steps = {k: make_train_step(cfg, prof=pr, mode="pot",
+                                n_microbatches=TRAIN_MICRO, lr=TRAIN_LR,
+                                wd=TRAIN_WD) for k, pr in profiles.items()}
+    fused_adamw.reset_launches()
+    trained = {}
+    for k, step in steps.items():
+        new, loss = step(state, batch)
+        trained[k] = (loss.view(torch.int32).item(),
+                      tree_digest([new.params, new.opt["m"], new.opt["v"]]))
+        del new
+    adamw_launches = fused_adamw.LAUNCHES["fused_adamw"]
+    n_leaves = len(leaves(state.params))
+    assert trained["tensor parallel"] == trained["dense"], \
+        "the train steps differ"
+    assert adamw_launches == 2 * n_leaves, (adamw_launches, n_leaves)
+    assert np.isfinite(np.int32(trained["dense"][0]).view(np.float32))
+    for k, step in steps.items():
+        times[f"train step {k}"] = median_ms(lambda: step(state, batch))
+    del state, steps
+    torch.cuda.empty_cache()
+
+    log(f"tensor and sequence parallelism: world-1 NCCL group, (1, 1) "
+        f"(data, model) mesh; {cfg.name} cut to {cfg.n_layers} layers "
+        f"(widths untouched): forward logits and prefill logits and "
+        f"cache on {TP_ROWS} x {TP_SEQ} bf16 tokens bitwise equal to the "
+        f"dense path; Session ({EP_SLOTS} slots, {EP_PROMPT}-token "
+        f"prompts, {EP_STEPS} steps) tokens and fingerprint {f1:#010x} "
+        f"bitwise equal, kv_commit launches {kv_launches}; pot step "
+        f"({TRAIN_MICRO} microbatches, {n_leaves} float32 leaves) loss "
+        f"and every parameter and moment leaf bitwise equal, fused_adamw "
+        f"launches {adamw_launches} ({time.perf_counter() - t0:.1f} s)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"  tensor parallelism ms (median of {EP_TIMED} after one, "
+        f"{smi}): " + "; ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return adamw_launches, kv_launches
+
+
 def phase_dryrun() -> int:
     """Phase 18b: the dry run's meta counts against the card.  Returns
     the fused AdamW kernel's launches of the timed steps."""
@@ -3585,6 +3778,8 @@ def run_phases(cpu, t_start) -> int:
     served_launches, served = phase_pipelined_serving(stream)
     launches["validate_bitsets"] = served_launches["validate_bitsets"]
     sharded, _ = phase_sharded(main_stream, dense, served)
+    # phase 19a holds the mesh store to the dense run's first batch
+    mesh_dense = {k: dense[k] for k in ("traces", "replay_log", "seconds")}
     # phase 9's launcher starts beside phase 12, whose first run (the
     # victim's, which dies) no metric reads
     launch_dir = tempfile.TemporaryDirectory()
@@ -3613,11 +3808,14 @@ def run_phases(cpu, t_start) -> int:
     try:
         mesh = phase_layout()
         adamw_ep, kv_ep = phase_moe_ep(mesh)
+        for name, n in phase_store_mesh(main_stream, mesh_dense).items():
+            launches[name] += n
+        adamw_tp, kv_tp = phase_tp(mesh)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    launches["fused_adamw"] += adamw_ep
-    launches["kv_commit"] += kv_ep
+    launches["fused_adamw"] += adamw_ep + adamw_tp
+    launches["kv_commit"] += kv_ep + kv_tp
     launches["fused_adamw"] += phase_dryrun()
     phase_engines(stream[0], cpu["cpu_engines"].get())
     phase_engines_pipelined(stream, cpu["cpu_engines_pipelined"].get())

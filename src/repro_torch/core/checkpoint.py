@@ -72,6 +72,7 @@ import signal
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.ingress import EV_DRAIN, IngressPool, JournalError
 from repro_torch.core.sequencer import sequencer_from_state, sequencer_state
@@ -230,6 +231,10 @@ def save_snapshot(session, directory: str, *, pool: IngressPool | None = None,
     ``_torn_hook(tmp)``, when given, runs after all files are staged and
     *before* the atomic rename — the fault-injection seam for torn-write
     tests.
+
+    Under a mesh (one store shard per rank) every rank calls this alike:
+    the shards are gathered, rank 0 alone writes the snapshot, and the
+    others wait for it and take its chain digest.
     """
     session._spec_flush()
     log = session.replay_log()
@@ -269,6 +274,34 @@ def save_snapshot(session, directory: str, *, pool: IngressPool | None = None,
         "parent_digest": session._chain_digest,
     }
 
+    mesh = getattr(store, "mesh", None)
+    if mesh is not None and mesh.get_local_rank() != 0:
+        got = [None]
+        dist.broadcast_object_list(got, group=mesh.get_group(),
+                                   group_src=0)
+        return _committed(session, snap_id, got[0], final)
+    try:
+        _write_snapshot(final, store, sharded, images, manifest, session,
+                        _torn_hook)
+    finally:
+        if mesh is not None:     # the other ranks wait on this broadcast
+            dist.broadcast_object_list([manifest.get("chain_digest")],
+                                       group=mesh.get_group(), group_src=0)
+    return _committed(session, snap_id, manifest["chain_digest"], final)
+
+
+def _committed(session, snap_id: int, chain: str | None, final: str) -> str:
+    """Advance the session's snapshot cursors past a committed snapshot."""
+    if chain is None:
+        raise SnapshotError(f"snapshot {final} was not committed")
+    session.snapshots_taken += 1
+    session._chain_digest = chain
+    session._next_snapshot_id = snap_id + 1
+    return final
+
+
+def _write_snapshot(final, store, sharded, images, manifest, session,
+                    _torn_hook) -> None:
     with atomic_dir(final) as tmp:
         files: dict[str, str] = {}
         if sharded:
@@ -283,11 +316,6 @@ def save_snapshot(session, directory: str, *, pool: IngressPool | None = None,
             json.dump(manifest, f)
         if _torn_hook is not None:
             _torn_hook(tmp)
-
-    session.snapshots_taken += 1
-    session._chain_digest = manifest["chain_digest"]
-    session._next_snapshot_id = snap_id + 1
-    return final
 
 
 def load_snapshot(path: str) -> tuple[dict, np.ndarray, np.ndarray]:

@@ -105,14 +105,6 @@ def make_trace(k: int, *, device="cuda", **overrides) -> ExecTrace:
     return ExecTrace(**fields)
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """The error of a reference feature the port does not have yet,
-    naming its item in ROADMAP.md's queue 1."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1 "
-        f"item {item})")
-
-
 def rank_from_order(order: torch.Tensor) -> torch.Tensor:
     """Inverse permutation: rank[order[p]] = p (int64)."""
     rank = torch.empty_like(order)

@@ -37,9 +37,12 @@ execution reads the flat view of the stacked shards, the conflict
 analysis decomposes per shard into (S, K, ceil(C/32)) packed words
 whose per-shard tables OR into the carried K×K table (the ``*_sharded``
 twins in ``kernel_ops``), and :func:`fused_write_back` splits into S
-independent scatters.  Conflict(t, u) is the OR over shards of per-shard
-conflicts and every decision stays in rank space, so S changes where
-the work happens, never a decision.
+independent scatters.  Under a mesh (one shard per rank) a rank packs,
+analyses and writes back only its own shard, the tables' OR crosses
+ranks, and execution loads rows through ``tstore.MeshRows``.
+Conflict(t, u) is the OR over shards of per-shard conflicts and every
+decision stays in rank space, so S changes where the work happens,
+never a decision.
 
 **Written-set helpers.**  :func:`footprint_conflicts` and
 :func:`mark_writes` test and grow an (O,) bool set of written objects:
@@ -101,11 +104,20 @@ def apply_writes(values, versions, waddrs, wvals, wn, seq_no,
     versions with its sequence number.  Under a sharded ``layout``
     address a lands in shard a // C at offset a % C: the same values and
     winners as the dense scatter (a transaction's deduplicated writes hit
-    distinct addresses)."""
+    distinct addresses); under a mesh each rank installs the writes to
+    its own shard."""
     keep = dedup_last_writer(waddrs, wn)
-    tgt = waddrs[keep].long()
-    if layout is not None and layout.sharded:
+    if layout is not None and layout.mesh is not None:
+        # one shard per rank: install only the writes this rank owns,
+        # into its one stacked shard
+        keep = keep & (layout.shard_of(waddrs) == layout.rank)
+        tgt = waddrs[keep].long()
+        tgt = (torch.zeros_like(tgt), layout.offset_of(tgt))
+    elif layout is not None and layout.sharded:
+        tgt = waddrs[keep].long()
         tgt = (layout.shard_of(tgt), layout.offset_of(tgt))
+    else:
+        tgt = waddrs[keep].long()
     values[tgt] = wvals[keep]
     versions[tgt] = seq_no
     return values, versions
@@ -198,7 +210,8 @@ def init_round_state(batch: TxnBatch, values: torch.Tensor,
     A sharded store takes the matrix formulation on the CPU too (the
     kernels' plain versions): ``foot_bits`` / ``write_bits`` are
     (S, K, W_s) words, each shard's bitset spanning its own range, and
-    ``conflict`` the OR-reduced K×K table the decisions consume."""
+    ``conflict`` the OR-reduced K×K table the decisions consume (under a
+    mesh (1, K, W_s), the rank's own shard)."""
     sharded = layout is not None and layout.sharded
     k, length = batch.opcodes.shape
     slot = values.shape[-1]
@@ -210,7 +223,7 @@ def init_round_state(batch: TxnBatch, values: torch.Tensor,
     conflict = foot_bits = write_bits = None
     if track_conflict and (sharded or _matrix_backend(values)):
         if sharded:
-            shape = (layout.shards, k, layout.words_per_shard)
+            shape = (layout.held_shards, k, layout.words_per_shard)
         else:
             shape = (k, -(-values.shape[0] // 32))
         conflict = z((k, k), torch.bool)
@@ -247,7 +260,7 @@ def refresh_round_state(state: RoundState, batch: TxnBatch,
             foot_bits, write_bits, res.raddrs, res.rn, res.waddrs, res.wn,
             live, layout)
         conflict = kernel_ops.conflict_matrix_delta_sharded(
-            foot_bits, write_bits, conflict, live)
+            foot_bits, write_bits, conflict, live, layout)
     elif conflict is not None:   # packed bitsets + delta kernel
         foot_bits, write_bits = kernel_ops.update_packed_footprints(
             foot_bits, write_bits, res.raddrs, res.rn, res.waddrs, res.wn,
@@ -327,7 +340,7 @@ def refresh_round_state_gathered(state: RoundState, batch: TxnBatch,
                 foot_bits, write_bits, cres.raddrs, cres.rn, cres.waddrs,
                 cres.wn, idx, valid, layout)
         conflict = kernel_ops.conflict_matrix_delta_compact_sharded(
-            foot_bits, write_bits, conflict, idx, valid)
+            foot_bits, write_bits, conflict, idx, valid, layout)
     elif conflict is not None:   # packed strips + pair kernel
         foot_bits, write_bits = kernel_ops.update_packed_footprints_compact(
             foot_bits, write_bits, cres.raddrs, cres.rn, cres.waddrs,
@@ -594,7 +607,13 @@ def fused_write_back(values, versions, waddrs, wvals, wn, committing, rank,
     Under a sharded ``layout`` the round splits into S independent
     scatters, one into each shard's slice (an address lives in exactly
     one shard, so each shard's winners come from exactly the writes the
-    dense scatter would route there)."""
+    dense scatter would route there).  Under a mesh each rank runs only
+    its own shard's scatter (the reference's ``shard_map`` body), and
+    nothing crosses ranks."""
+    if layout is not None and layout.mesh is not None:
+        _shard_write_back(values[0], versions[0], layout.rank, waddrs, wvals,
+                          wn, committing, rank, seq_nos, layout.shard_size)
+        return values, versions
     if layout is not None and layout.sharded:
         for s in range(layout.shards):
             _shard_write_back(values[s], versions[s], s, waddrs, wvals, wn,

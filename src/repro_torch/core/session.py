@@ -50,8 +50,13 @@ never persisted.  ``elastic`` attaches a
 :class:`~repro_torch.runtime.elastic.ElasticLaneManager` whose join and
 leave events apply at formed-batch boundaries.
 
-Not ported (it raises ``NotImplementedError``): ``mesh``, one shard per
-device.
+**One shard per rank**: ``mesh`` (a 1-D ``DeviceMesh`` of ``shards``
+ranks) cuts the store one shard per process.  Every rank builds the same
+session and submits the same batches; each holds, analyses and writes
+back only its own shard, loads of other shards' rows cross ranks
+(``tstore.MeshRows``), and fingerprints, traces and ``replay_log()``
+equal the dense session's on every rank.  Snapshots gather the shards
+(rank 0 writes them) and restore into any layout.
 """
 
 from __future__ import annotations
@@ -63,8 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import protocol
-from repro_torch.core.engine import (EngineDef, ExecTrace, get_engine,
-                                     not_ported)
+from repro_torch.core.engine import EngineDef, ExecTrace, get_engine
 from repro_torch.core.sequencer import ReplaySequencer, RoundRobinSequencer
 from repro_torch.core.tstore import TStore, make_store, shard_store
 from repro_torch.core.tstore import fingerprint as store_fingerprint
@@ -115,7 +119,9 @@ class PotSession:
         space, so fingerprints, traces and ``replay_log()`` equal the
         dense store's.  Passing it with an already sharded ``store``
         raises.
-      mesh: one shard per device; not ported (raises).
+      mesh: one shard per rank: a 1-D ``DeviceMesh`` of ``shards``
+        ranks (``ValueError`` for any other), every rank running this
+        session alike (module docstring).
       elastic: an optional
         :class:`~repro_torch.runtime.elastic.ElasticLaneManager`
         (scaling events at formed-batch boundaries, in ``serve``).
@@ -127,8 +133,6 @@ class PotSession:
                  n_lanes: int = 1, bucket: bool = True,
                  bucket_ladder: str = "pow2", shards: int = 1, mesh=None,
                  pipeline_depth: int = 0, elastic=None, device="cuda"):
-        if mesh is not None:
-            raise not_ported("one shard per device (mesh)", 9)
         if pipeline_depth < 0:
             raise ValueError("pipeline_depth must be >= 0")
         if bucket_ladder not in ("pow2", "dense"):
@@ -140,9 +144,10 @@ class PotSession:
             if n_objects is None:
                 raise ValueError("PotSession needs n_objects or store")
             store = make_store(n_objects, slot=slot, init=init,
-                               shards=shards, device=self.device)
+                               shards=shards, mesh=mesh, device=self.device)
         else:
-            if shards > 1 and not isinstance(store, TStore):
+            if (shards > 1 or mesh is not None) and not isinstance(store,
+                                                                    TStore):
                 raise ValueError(
                     "pass either an already-sharded store OR shards= with "
                     "a dense store, not both")
@@ -150,8 +155,8 @@ class PotSession:
                 store, values=store.values.to(self.device),
                 versions=store.versions.to(self.device),
                 gv=store.gv.to(self.device))
-            if shards > 1:
-                store = shard_store(store, shards)
+            if shards > 1 or mesh is not None:
+                store = shard_store(store, shards, mesh=mesh)
         self.bucket_ladder = bucket_ladder
         self.store = store
         self.engine = engine if isinstance(engine, EngineDef) \

@@ -26,6 +26,7 @@ from repro_torch.kernels import conflict as _conf
 from repro_torch.kernels import fused_adamw as _adamw
 from repro_torch.kernels import kv_commit as _kvc
 from repro_torch.kernels import validate as _val
+from repro_torch.runtime import shardings
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -159,7 +160,23 @@ def conflict_matrix_delta(foot_bits: torch.Tensor, write_bits: torch.Tensor,
 # is the per-shard twin of a dense one above: one call of a kernel
 # wrapper per shard at W_s = ceil(C/32) words (the kernel on CUDA
 # tensors, its plain version on CPU ones), OR-reduced.  The packed words
-# keep the reference's (S, K, W_s) int32 layout.
+# keep the reference's (S, K, W_s) int32 layout.  Under a mesh (one shard
+# per rank, ``tstore.StoreLayout.mesh``) a rank packs and launches only
+# its own shard's strips, (1, K, W_s), and the OR over shards crosses
+# ranks (``_or_ranks``: an all-gather, then the OR in rank order).
+
+
+def _or_ranks(t: torch.Tensor, layout) -> torch.Tensor:
+    """The OR of a bool tensor over the ranks of ``layout``'s mesh (the
+    tensor itself without one)."""
+    if layout is None or layout.mesh is None:
+        return t
+    parts = shardings.gather(t.view(torch.uint8)[None],
+                             layout.mesh.get_group(), 0)
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out |= p
+    return out.view(torch.bool)
 
 
 def _pack_sharded(addrs: torch.Tensor, valid: torch.Tensor,
@@ -167,8 +184,13 @@ def _pack_sharded(addrs: torch.Tensor, valid: torch.Tensor,
     """(S, K, W_s) int32: each shard's bit-packing of the valid (K, L)
     addresses in its range, at shard-local bits.  One packing over
     S·W_s words, address a at bit offset_of(a) of shard_of(a)'s words,
-    then split into the shards."""
+    then split into the shards.  Under a mesh (1, K, W_s): the rank's
+    own shard only."""
     span = layout.words_per_shard * 32
+    if layout.mesh is not None:
+        mine = valid & (layout.shard_of(addrs) == layout.rank)
+        return _val.pack_addr_sets_masked(layout.offset_of(addrs), mine,
+                                          span)[None]
     local = layout.shard_of(addrs) * span + layout.offset_of(addrs)
     bits = _val.pack_addr_sets_masked(local, valid, layout.shards * span)
     k = addrs.shape[0]
@@ -234,7 +256,8 @@ def conflict_matrix_sharded(foot_bits: torch.Tensor,
 def conflict_matrix_delta_sharded(foot_bits: torch.Tensor,
                                   write_bits: torch.Tensor,
                                   old: torch.Tensor,
-                                  live: torch.Tensor) -> torch.Tensor:
+                                  live: torch.Tensor,
+                                  layout=None) -> torch.Tensor:
     """Sharded twin of :func:`conflict_matrix_delta`: the delta kernel
     once per shard against ``old``, OR-reduced.  A stale entry ORs
     ``old`` with itself; a refreshed one is the OR of the shards'
@@ -245,15 +268,15 @@ def conflict_matrix_delta_sharded(foot_bits: torch.Tensor,
     for s in range(1, foot_bits.shape[0]):
         out |= _conf.conflict_matrix_bits_delta(foot_bits[s], write_bits[s],
                                                 old, live)
-    return out
+    return _or_ranks(out, layout)
 
 
 def conflict_matrix_delta_compact_sharded(foot_bits: torch.Tensor,
                                           write_bits: torch.Tensor,
                                           old: torch.Tensor,
                                           idx: torch.Tensor,
-                                          valid: torch.Tensor
-                                          ) -> torch.Tensor:
+                                          valid: torch.Tensor,
+                                          layout=None) -> torch.Tensor:
     """Sharded twin of :func:`conflict_matrix_delta_compact`: the (C, K)
     row strip and the (K, C) column strip, each the OR over shards of
     the pair kernel's per-shard strips, scattered over ``old``.
@@ -266,6 +289,8 @@ def conflict_matrix_delta_compact_sharded(foot_bits: torch.Tensor,
         c = _conf.conflict_matrix_bits_pair(fb, wb[idx])
         row_strip = r if row_strip is None else row_strip | r
         col_strip = c if col_strip is None else col_strip | c
+    row_strip = _or_ranks(row_strip, layout)
+    col_strip = _or_ranks(col_strip, layout)
     new = scatter_rows(old, row_strip, idx, valid)
     # column twin of scatter_rows: gather padding is masked, not scattered
     new[:, idx[valid]] = col_strip[:, valid]
@@ -344,13 +369,13 @@ def spec_dirty_words_sharded(versions: torch.Tensor, snap_gv,
                              layout) -> torch.Tensor:
     """Per-shard twin of :func:`spec_dirty_words`: shard s's words span
     only its own range, at shard-local bits.  versions (S, C) ->
-    (S, W_s) int32.  Padding rows are never stamped (version 0), hence
-    never dirty."""
+    (S, W_s) int32 (under a mesh (1, C) -> (1, W_s), the rank's shard).
+    Padding rows are never stamped (version 0), hence never dirty."""
     w = layout.words_per_shard
     dirty = torch.nn.functional.pad(versions > snap_gv,
                                     (0, w * 32 - layout.shard_size))
     bits = _val._BITS.to(dirty.device)
-    return torch.where(dirty.reshape(layout.shards, w, 32), bits, 0).sum(
+    return torch.where(dirty.reshape(-1, w, 32), bits, 0).sum(
         dim=2, dtype=torch.int32)
 
 
@@ -359,16 +384,16 @@ def spec_read_invalid_sharded(raddrs: torch.Tensor, rn: torch.Tensor,
                               layout) -> torch.Tensor:
     """Sharded twin of :func:`spec_read_invalid`: per-shard read bits
     against per-shard dirty words through the validation kernel (its
-    plain version on CPU tensors), OR-reduced; a dirty read lands in
-    exactly one shard."""
+    plain version on CPU tensors), OR-reduced (across ranks under a
+    mesh); a dirty read lands in exactly one shard."""
     valid = (torch.arange(raddrs.shape[1], device=raddrs.device)[None, :]
              < rn[:, None])
     read_bits = _pack_sharded(raddrs, valid, layout)
     dwords = spec_dirty_words_sharded(versions, snap_gv, layout)
     out = _val.validate_bitsets(read_bits[0], dwords[0])
-    for s in range(1, layout.shards):
+    for s in range(1, read_bits.shape[0]):
         out |= _val.validate_bitsets(read_bits[s], dwords[s])
-    return out
+    return _or_ranks(out, layout)
 
 
 def kv_cache_commit(cache, versions, rows, page_idx, row_idx, sn, commit):

@@ -23,13 +23,30 @@ sequences; it returns the K/V rows that prefill caches, and takes a
 cross-attention source), grouped decode attention (whole-cache and
 chunked online-softmax forms; ``attn_decode`` also for the local window
 and for cross-attention) and the SwiGLU / GELU MLP.  The reference's
-sharding constraints are identities on one card and are left out; the
-weights' spec trees (``attn_specs``, ``mlp_specs``) are kept for the
-dry run and for laying the weights out over a mesh.
+weights' spec trees (``attn_specs``, ``mlp_specs``) give the dry run's
+layout and a mesh's.
+
+On a mesh (the ``place`` argument, ``runtime/shardings.Place``;
+``ALONE``, the identity, without one) attention and the MLP run
+tensor-parallel on each rank's own weight shards, as the reference's
+profile lays them out: ``w_in`` (wq, wk, wv, w1, w3) by columns over
+the model axis, ``w_out`` (wo, w2) by rows, the QKV biases by columns,
+each FSDP shard gathered over the data axes at use.
+:func:`attn_apply` and :func:`mlp_apply` then take the rank's
+normalised block, gather its sequence (the sublayer's entry), compute
+the rank's heads or hidden columns, and sum the row-parallel partial
+outputs into the rank's block (its exit).  Grouped K/V heads that do not split over
+the model axis are gathered whole from their column blocks, and each
+rank keeps the K/V heads its query heads use.  A decode step works on
+the rank's decode-cache shard: its K/V heads where they split over the
+model axis (:func:`attn_decode` on them, ``lm._attn_decode``), else
+its block of the cache's rows (:func:`decode_rows_tp`, whose partial
+softmax statistics every rank gathers and combines in rank order).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -37,7 +54,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.runtime.shardings import Profile
+from repro_torch.runtime.shardings import (ALONE, Place, Profile, block,
+                                           gather)
 
 C = torch.bfloat16  # compute dtype; the serving path stores its weights in it
 NEG = -1e30
@@ -283,17 +301,26 @@ def uses_banded(kind: str, causal: bool, s: int, cfg: ModelConfig) -> bool:
 
 def attn_apply(p, x, cfg: ModelConfig, *, kind="attn", causal=True,
                positions=None, kv_src=None, kv_positions=None, chunk=0,
-               use_rope=True, return_kv=False):
+               use_rope=True, return_kv=False, place: Place = ALONE):
     """Attention over the full sequence (training and prefill).  x
     (B, S, D) at ``positions`` (B, S), 0..S-1 by default; ``kv_src``
     (B, S_kv, D) is a cross-attention source (x itself by default), at
     ``kv_positions`` (0..S_kv-1 for a source, else ``positions``).
     Weights are cast to x's dtype at use.  ``return_kv`` also returns
     the K/V rows (B, S_kv, KV, hd) after RoPE and before the grouped
-    heads are repeated: the rows prefill caches."""
-    p = _cast(p, x.dtype)
+    heads are repeated: the rows prefill caches.
+
+    With the ``place`` of a rank on a mesh (self-attention only; module
+    docstring) x is the rank's normalised block (B_b, S_b, D) and
+    ``positions`` (B_b, S) its batch rows': the rank's query heads over
+    the gathered sequence, its partial output summed into its block;
+    the K/V rows returned are its K/V heads (B_b, S, KV / n_model, hd)
+    where they split, else all of them."""
+    x = place.enter(x)
+    p = tp_weights(p, place, x.dtype)
+    lc = local_heads(cfg, place)
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h, kv, hd = lc.n_heads, lc.n_kv_heads, cfg.hd
     src = x if kv_src is None else kv_src.to(x.dtype)
     s_kv = src.shape[1]
     q = x @ p["wq"]
@@ -301,6 +328,9 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind="attn", causal=True,
     v = src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    whole_kv = not kv_split(cfg, place)
+    if whole_kv:
+        k, v = place.gather_heads(k), place.gather_heads(v)
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s_kv, kv, hd)
     v = v.reshape(b, s_kv, kv, hd)
@@ -314,7 +344,11 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind="attn", causal=True,
         q = apply_rope(q, sin, cos)
         sin, cos = rope_tables(kv_positions, hd, cfg.rope_theta)
         k = apply_rope(k, sin, cos)
-    k_rep, v_rep = _repeat_kv(k, h // kv), _repeat_kv(v, h // kv)
+    g = cfg.n_heads // cfg.n_kv_heads
+    k_rep, v_rep = _repeat_kv(k, g), _repeat_kv(v, g)
+    if whole_kv:                      # the K/V heads of the rank's queries
+        k_rep = block(k_rep, 2, place.m, place.n_model)
+        v_rep = block(v_rep, 2, place.m, place.n_model)
     if uses_banded(kind, causal, s, cfg):
         out = attend_window_banded(q, k_rep, v_rep, window=cfg.window)
     else:
@@ -322,7 +356,7 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind="attn", causal=True,
                           causal=causal,
                           window=cfg.window if kind == "local" else 0,
                           chunk=chunk)
-    out = out.reshape(b, s, h * hd) @ p["wo"]
+    out = place.leave(out.reshape(b, s, h * hd) @ p["wo"])
     return (out, k, v) if return_kv else out
 
 
@@ -416,11 +450,111 @@ def mlp_specs(cfg: ModelConfig, prof: Profile) -> dict:
     return {"w1": prof.w_in(), "w2": prof.w_out()}
 
 
-def mlp_apply(p, x, cfg: ModelConfig):
+def mlp_apply(p, x, cfg: ModelConfig, place: Place = ALONE):
     """SwiGLU where the layer has ``w3``, else GELU in its tanh form
-    (``jax.nn.gelu``'s default)."""
+    (``jax.nn.gelu``'s default), the weights cast to x's dtype at use.
+    With the ``place`` of a rank on a mesh (module docstring) x is the
+    rank's normalised block (B_b, S_b, D): its hidden columns over the
+    gathered sequence, the partial output summed into its block."""
+    x = place.enter(x)
+    p = tp_weights(p, place, x.dtype)
     if "w3" in p:
         h = F.silu(x @ p["w1"]) * (x @ p["w3"])
     else:
         h = F.gelu(x @ p["w1"], approximate="tanh")
-    return h @ p["w2"]
+    return place.leave(h @ p["w2"])
+
+
+# ------------------------------------------------------- tensor parallel
+def local_heads(cfg: ModelConfig, place: Place) -> ModelConfig:
+    """The rank's share of the attention heads as a config: its query
+    heads, and its K/V heads where they split over the model axis (else
+    all of them).  Refuses query heads that do not split."""
+    n = place.n_model
+    if n == 1:
+        return cfg
+    if cfg.n_heads % n:
+        raise ValueError(f"{cfg.n_heads} heads do not split over the model "
+                         f"axis of {n} ranks")
+    kv = cfg.n_kv_heads // n if cfg.n_kv_heads % n == 0 else cfg.n_kv_heads
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // n, n_kv_heads=kv,
+                               head_dim=cfg.hd)
+
+
+def kv_split(cfg: ModelConfig, place: Place) -> bool:
+    """Whether the grouped K/V heads split over the model axis (the
+    decode cache then holds the rank's heads, else its rows)."""
+    return cfg.n_kv_heads % place.n_model == 0
+
+
+def tp_weights(p: dict, place: Place, dtype) -> dict:
+    """A sublayer's weights as the rank uses them, in ``dtype``:
+    column-parallel ``w*`` in (wq, wk, wv, w1, w3) and the biases, and
+    the row-parallel wo and w2, each FSDP shard gathered (``Place.zero``;
+    the biases are replicated over the data axes)."""
+    out = {}
+    for name, t in p.items():
+        if name.startswith("b"):
+            t = place.shared(t, model=False)
+        else:
+            t = place.zero(t, 1 if name in ("wo", "w2") else 0)
+        out[name] = t.to(dtype)
+    return out
+
+
+def decode_rows_tp(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
+                   place: Place, kind: str = "attn"):
+    """One-token decode of the rank's batch block x (B_b, 1, D) at
+    ``pos`` (B_b,) over its block of a cache's rows (updated in place),
+    which holds every K/V head, with the rank's weights ``p``
+    (:func:`tp_weights`): the new token's query and K/V rows gathered
+    whole from the column blocks, the rows written where the rank holds
+    them, each rank's partial softmax (max, sum, weighted values;
+    float32) over its rows gathered and combined in rank order, then the
+    rank's query heads through its rows of wo: (B_b, 1, D), partial over
+    the model axis.  ``kind`` ``"local"`` reads the cache as a block of
+    the window's ring."""
+    b = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, knew, vnew = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, knew, vnew = q + p["bq"], knew + p["bk"], vnew + p["bv"]
+    q, knew, vnew = (gather(t, place.model, -1) for t in (q, knew, vnew))
+    q = q.reshape(b, 1, kv, h // kv, hd)
+    knew = knew.reshape(b, 1, kv, hd)
+    sin, cos = rope_tables(pos[:, None], hd, cfg.rope_theta)
+    q, knew = apply_rope(q, sin, cos), apply_rope(knew, sin, cos)
+    vnew = vnew.reshape(b, 1, kv, hd)
+    rows = cache_k.shape[1]
+    first = place.m * rows                 # the rank's first cache row
+    if kind == "local":
+        ring = rows * place.n_model        # the whole ring's length
+        slot = pos % ring - first
+        held = torch.arange(rows, device=x.device)[None] + first
+        held = pos[:, None] - ((pos[:, None] - held) % cfg.window)
+        mask = ((held >= 0) & (held <= pos[:, None])
+                & (held > pos[:, None] - cfg.window))
+    else:
+        slot = pos - first
+        held = torch.arange(rows, device=x.device)[None] + first
+        mask = held <= pos[:, None]
+    mine = (slot >= 0) & (slot < rows)
+    write_rows(cache_k, knew[:, 0], torch.where(mine, slot, rows))
+    write_rows(cache_v, vnew[:, 0], torch.where(mine, slot, rows))
+    scores = torch.einsum("bkgd,bskd->bkgs", q[:, 0].float(),
+                          cache_k.float()) * hd ** -0.5
+    scores = torch.where(mask[:, None, None, :], scores, NEG)
+    mx = scores.amax(dim=-1)
+    pr = torch.exp(scores - mx[..., None])
+    stats = torch.cat([mx[..., None], pr.sum(dim=-1)[..., None],
+                       torch.einsum("bkgs,bskd->bkgd", pr,
+                                    cache_v.float())], dim=-1)
+    parts = gather(stats[None], place.model, 0)      # (n, B, KV, G, 2+hd)
+    top = parts[..., 0].amax(dim=0)
+    l = acc = 0
+    for part in parts:                              # rank order
+        corr = torch.exp(part[..., 0] - top)
+        l = l + part[..., 1] * corr
+        acc = acc + part[..., 2:] * corr[..., None]
+    out = (acc / l[..., None]).to(x.dtype).reshape(b, 1, h * hd)
+    return block(out, 2, place.m, place.n_model) @ p["wo"]

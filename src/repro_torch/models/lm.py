@@ -25,15 +25,41 @@ rows.  The decode step updates the cache in place.
 
 ``param_specs`` and ``cache_specs`` give the spec trees of both in the
 same layout (``runtime/shardings.py``): the dry run's and a mesh's
-layout.  ``forward``, ``prefill``, ``decode_step`` and ``trunk`` take a
-profile (``SMOKE`` by default: one process) and hand it to the MoE
-layer, the only layer that reads the mesh: on a profile with one it
-runs expert parallelism (``models/moe.py``), and a rank's parameter
-tree holds its experts' shards (:func:`local_params`).  The other
-sublayers compute whole on every rank; their tensor and sequence
-parallelism (the reference's ``cons`` in ``_sublayer``) is not ported.
-``init_params(None, cfg, device="meta")`` builds the parameter tree's
-shapes with no values.
+layout.  ``init_params(None, cfg, device="meta")`` builds the parameter
+tree's shapes with no values.
+
+``forward``, ``prefill``, ``decode_step`` and ``trunk`` take a profile
+(``SMOKE`` by default: one process).  On a profile with a mesh every
+rank runs the call SPMD on its own shards (:func:`local_params`,
+:func:`init_cache` with ``prof``), as the reference's ``cons``
+constraints lay them out (``shardings.Place``):
+
+- the residual stream between sublayers is the rank's block: its batch
+  rows over the data axes and, where ``seq_shard`` and the sequence
+  divides the model axis, its sequence block (``act_btd``); norms run
+  on the block;
+- attention and the dense MLP are tensor-parallel (``blocks.attn_apply``
+  and ``mlp_apply`` with the rank's place): the sequence gathered at the
+  entry (``act_gathered``), the rank's heads or hidden columns, the
+  partial outputs reduce-scattered into the block;
+- the logits are computed by vocab block over the model axis
+  (``act_btv``) and gathered whole on every rank, where the loss is
+  computed whole;
+- the MoE layer runs its expert parallelism (``models/moe.py``) on the
+  rank's block, and the mamba, RG-LRU and cross-attention layers compute
+  whole on every rank, their input gathered and their output cut back
+  to the block;
+- the decode cache is the rank's shard: K/V heads over the model axis
+  where they split, else the rows (``cache_specs``); the other entries
+  are the rank's batch rows, whole on the model axis.
+
+Every leaf a rank holds whole gets its whole gradient, summed over the
+ranks whose tokens used it, and a shard its shard's, all through the
+fixed-ring ordered reduction, so a train step is bitwise the same
+whatever the ranks' timing.  Each function has one body for both: off
+a mesh its place is ``shardings.ALONE``, whose blocks are the whole and
+whose steps across ranks are the identity.  At one rank each call is
+the dense path bit for bit.
 
 ``forward`` and ``encode`` compute in bf16 from whatever weights they
 are given (the training path's float32 masters are cast at use), as the
@@ -53,7 +79,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import blocks, moe, rglru, ssm
 from repro_torch.models.blocks import C, MetaDraws, _cast, _normal, rmsnorm
 from repro_torch.models.config import ModelConfig
-from repro_torch.runtime.shardings import SMOKE, P, Profile
+from repro_torch.runtime.shardings import (ALONE, SMOKE, P, Place, Profile,
+                                           block, local_shard, place_of)
 from repro_torch.tree import tree_map
 
 KINDS = ("attn", "local", "mamba", "rglru")
@@ -163,15 +190,32 @@ def param_specs(cfg: ModelConfig, prof: Profile) -> dict:
     return specs
 
 
+def on_mesh(prof: Profile) -> bool:
+    """Whether ``prof`` runs the model SPMD over a mesh."""
+    return prof.enabled and prof.mesh is not None
+
+
 def local_params(params, cfg: ModelConfig, prof: Profile) -> dict:
-    """The parameter tree a rank holds under ``prof``: each MoE layer's
-    expert weights cut to the rank's shard (``moe.local_moe``), every
-    other leaf the same tensor; ``params`` itself where the profile has
-    no mesh."""
-    if not prof.enabled or prof.mesh is None or not cfg.n_experts:
+    """The parameter tree a rank holds under ``prof``: each self-attention
+    and dense MLP weight cut to the rank's shard by its spec
+    (``blocks.attn_specs``, ``mlp_specs``), each MoE layer's expert
+    weights cut (``moe.local_moe``), every other leaf the same tensor;
+    ``params`` itself where the profile has no mesh."""
+    if not on_mesh(prof):
         return params
-    cut = lambda p: (dict(p, moe=moe.local_moe(p["moe"], cfg, prof))
-                     if "moe" in p else p)
+
+    def cut_tree(p, specs):
+        return {n: local_shard(t, specs[n], prof.mesh) for n, t in p.items()}
+
+    def cut(p):
+        p = dict(p)
+        if "attn" in p:
+            p["attn"] = cut_tree(p["attn"], blocks.attn_specs(cfg, prof))
+        if "mlp" in p:
+            p["mlp"] = cut_tree(p["mlp"], blocks.mlp_specs(cfg, prof))
+        if "moe" in p:
+            p["moe"] = moe.local_moe(p["moe"], cfg, prof)
+        return p
     return dict(params, layers=[cut(p) for p in params["layers"]])
 
 
@@ -199,77 +243,104 @@ def ring_positions(pos, window: int, cache_len: int) -> torch.Tensor:
     return pos[:, None] - ((pos[:, None] - r[None]) % window)
 
 
-def _cache_rows(k, v, kind: str, cfg: ModelConfig, max_seq: int) -> dict:
+def _cache_rows(k, v, kind: str, cfg: ModelConfig, max_seq: int,
+                place: Place = ALONE) -> dict:
     """A prefill's K/V rows as the decode cache holds them: a local
-    layer's ring, or a global layer's rows padded to ``max_seq``."""
+    layer's ring, or a global layer's rows padded to ``max_seq``.  On a
+    mesh the rank's shard: the rows of its K/V heads where they split
+    over the model axis, else its block of the rows (a local layer's
+    ring padded to its decode length ``min(window, max_seq)`` first)."""
     s = k.shape[1]
     if kind == "local":
         idx = ring_rows(s, cfg.window or s, k.device)
-        return {"k": k[:, idx], "v": v[:, idx]}
-    if max_seq > s:
+        c = {"k": k[:, idx], "v": v[:, idx]}
+    elif max_seq > s:
         pad = (0, 0, 0, 0, 0, max_seq - s)
-        k, v = F.pad(k, pad), F.pad(v, pad)
-    return {"k": k, "v": v}
+        c = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    else:
+        c = {"k": k, "v": v}
+    if blocks.kv_split(cfg, place):
+        return c
+    rows = (min(cfg.window or max_seq, max_seq) if kind == "local"
+            else c["k"].shape[1])
+    if rows % place.n_model:
+        raise ValueError(f"a cache of {rows} rows does not split over the "
+                         f"model axis of {place.n_model} ranks")
+    return {name: block(F.pad(t, (0, 0, 0, 0, 0, rows - t.shape[1])), 1,
+                        place.m, place.n_model).contiguous()
+            for name, t in c.items()}
 
 
 def _sublayer(p, x, *, kind, cfg: ModelConfig, prof: Profile = SMOKE,
-              positions, enc, causal, chunk, collect, max_seq):
-    """One layer over x (B, S, D), its weights cast to x's dtype here (so
-    a rematerialised layer recasts them instead of keeping them).
-    Returns (x, the layer's decode cache or None)."""
-    p = _cast(p, x.dtype)
+              place: Place = ALONE, positions, enc, causal, chunk, collect,
+              max_seq):
+    """One layer over x (B, S, D), its weights cast to x's dtype at use
+    (so a rematerialised layer recasts them instead of keeping them).
+    On a mesh (module docstring) x is the rank's block (B_b, S_b, D) and
+    ``positions`` (B_b, S) its batch rows'.  Returns (x, the layer's
+    decode cache, on a mesh the rank's shard, or None)."""
+    dt = x.dtype
+
+    def norm(name, t):
+        scale = place.shared(p[name], model=place.seq_split).to(dt)
+        return rmsnorm(t, scale, cfg.norm_eps)
+
     new_c = None
-    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    h = norm("ln1", x)
     if kind in ("attn", "local"):
         out = blocks.attn_apply(p["attn"], h, cfg, kind=kind, causal=causal,
                                 positions=positions, chunk=chunk,
-                                return_kv=collect)
+                                return_kv=collect, place=place)
         if collect:
             h, k, v = out
-            new_c = _cache_rows(k, v, kind, cfg, max_seq)
+            new_c = _cache_rows(k, v, kind, cfg, max_seq, place)
         else:
             h = out
-    elif kind == "mamba":
-        out = ssm.mamba_apply(p["mixer"], h, cfg, return_state=collect)
-        h, new_c = out if collect else (out, None)
-    else:
-        out = rglru.rglru_apply(p["mixer"], h, cfg, return_state=collect)
-        h, new_c = out if collect else (out, None)
+    else:                   # a mixer every rank computes whole
+        mixer = ssm.mamba_apply if kind == "mamba" else rglru.rglru_apply
+        out = mixer(_cast(p["mixer"], dt), place.whole_in(h), cfg,
+                    return_state=collect)
+        out, state = out if collect else (out, None)
+        h = place.whole_out(out)
+        if collect:
+            new_c = {n: place.batch_block(t) for n, t in state.items()}
     x = x + h
     if "xattn" in p and enc is not None:
-        h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
-        out = blocks.attn_apply(p["xattn"], h, cfg, causal=False,
-                                positions=positions, kv_src=enc,
-                                use_rope=False, return_kv=collect)
+        h = norm("ln_x", x)
+        out = blocks.attn_apply(p["xattn"], place.whole_in(h), cfg,
+                                causal=False, kv_src=enc, use_rope=False,
+                                return_kv=collect)
         if collect:
-            h, xk, xv = out
-            new_c = dict(new_c, xk=xk, xv=xv)
-        else:
-            h = out
-        x = x + h
+            out, xk, xv = out
+            new_c = dict(new_c, xk=place.batch_block(xk),
+                         xv=place.batch_block(xv))
+        x = x + place.whole_out(out)
     if "mlp" in p or "moe" in p:
-        h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + (moe.moe_apply(p["moe"], h, cfg, prof) if "moe" in p
-                 else blocks.mlp_apply(p["mlp"], h, cfg))
+        h = norm("ln2", x)
+        x = x + (moe.moe_apply(p["moe"], h, cfg, prof, place) if "moe" in p
+                 else blocks.mlp_apply(p["mlp"], h, cfg, place))
     return x, new_c
 
 
 def trunk(params, x, cfg: ModelConfig, prof: Profile = SMOKE, *, positions,
           enc=None, causal=True, chunk=0, remat=False, collect=False,
-          max_seq=0, layers_key="layers"):
+          max_seq=0, layers_key="layers", place: Place = ALONE):
     """The layers of ``params[layers_key]`` over x (B, S, D) (the
     encoder's are all ``"attn"``).  ``remat`` recomputes each layer in
     the backward pass instead of keeping its activations
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
-    With ``collect`` returns (x, the decode cache as a list)."""
+    With ``collect`` returns (x, the decode cache as a list).  With the
+    ``place`` of a rank on a mesh x is its block (B_b, S_b, D) and
+    ``positions`` (B_b, S) its batch rows' (module docstring)."""
     layers = params[layers_key]
     kinds = layer_kinds(cfg) if layers_key == "layers" else ["attn"] * len(
         layers)
     caches = []
     for p, kind in zip(layers, kinds, strict=True):
         layer = partial(_sublayer, kind=kind, cfg=cfg, prof=prof,
-                        positions=positions, enc=enc, causal=causal,
-                        chunk=chunk, collect=collect, max_seq=max_seq)
+                        place=place, positions=positions, enc=enc,
+                        causal=causal, chunk=chunk, collect=collect,
+                        max_seq=max_seq)
         if remat:
             x, c = checkpoint(layer, p, x, use_reentrant=False)
         else:
@@ -282,17 +353,36 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
-def _logits(params, x, cfg: ModelConfig):
-    x = rmsnorm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return x @ head.to(x.dtype)
+def place_len(tokens, prefix_embeds) -> int:
+    """The sequence's length: the tokens' after the prefix's."""
+    return tokens.shape[1] + (0 if prefix_embeds is None
+                              else prefix_embeds.shape[1])
 
 
-def _embed(params, tokens, prefix_embeds, dtype):
-    x = F.embedding(tokens, params["embed"].to(dtype))
+def _logits(params, x, cfg: ModelConfig, place: Place = ALONE):
+    """The final norm and the head over x (B, S, D).  On a mesh x is the
+    rank's block (B_b, S_b, D): the rank computes its vocab block of the
+    whole sequence's logits, gathered into the whole (B, S, V) on every
+    rank."""
+    if cfg.padded_vocab % place.n_model:
+        raise ValueError(f"a vocabulary of {cfg.padded_vocab} does not split "
+                         f"over the model axis of {place.n_model} ranks")
+    scale = place.shared(params["final_norm"], model=place.seq_split)
+    x = place.enter(rmsnorm(x, scale.to(x.dtype), cfg.norm_eps))
+    head = place.shared(params["embed"].T if cfg.tie_embeddings
+                        else params["head"], model=True)
+    head = block(head, 1, place.m, place.n_model)
+    return place.gather_logits(x @ head.to(x.dtype))
+
+
+def _embed(params, tokens, prefix_embeds, dtype, place: Place):
+    """The embeddings of ``tokens`` (after ``prefix_embeds``): the rank's
+    block of them."""
+    embed = place.shared(params["embed"], model=place.seq_split)
+    x = F.embedding(tokens, embed.to(dtype))
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
-    return x
+    return place.take_block(x)
 
 
 def encode(params, frames, cfg: ModelConfig, *, remat=False):
@@ -316,11 +406,13 @@ def forward(params, tokens, cfg: ModelConfig, prof: Profile = SMOKE, *,
     prepended to the token embeddings (internvl2); ``enc`` (B, F, D):
     the encoder's output for cross-attention (whisper).  ``chunk`` as in
     :func:`repro_torch.models.blocks.attend_full`."""
-    x = _embed(params, tokens, prefix_embeds, C)
-    b, s, _ = x.shape
-    x = trunk(params, x, cfg, prof, positions=_positions(b, s, x.device),
-              enc=enc, chunk=chunk, remat=remat)
-    return _logits(params, x, cfg)
+    b, s = tokens.shape[0], place_len(tokens, prefix_embeds)
+    place = place_of(prof, (b, s))
+    x = _embed(params, tokens, prefix_embeds, C, place)
+    positions = place.batch_block(_positions(b, s, x.device))
+    x = trunk(params, x, cfg, prof, positions=positions, enc=enc,
+              chunk=chunk, remat=remat, place=place)
+    return _logits(params, x, cfg, place)
 
 
 def prefill(params, tokens, cfg: ModelConfig, prof: Profile = SMOKE, *,
@@ -332,22 +424,30 @@ def prefill(params, tokens, cfg: ModelConfig, prof: Profile = SMOKE, *,
     length; the rest for decoding).  A local layer caches its ring, a
     mamba or RG-LRU layer its state and conv rows, a cross-attention
     layer the K/V of ``enc``."""
-    x = _embed(params, tokens, prefix_embeds, params["embed"].dtype)
-    b, s, _ = x.shape
-    x, cache = trunk(params, x, cfg, prof,
-                     positions=_positions(b, s, x.device),
-                     enc=enc, chunk=chunk, collect=True,
-                     max_seq=max(max_seq, s))
-    return _logits(params, x[:, -1:], cfg), cache
+    b, s = tokens.shape[0], place_len(tokens, prefix_embeds)
+    place = place_of(prof, (b, s))
+    x = _embed(params, tokens, prefix_embeds, params["embed"].dtype, place)
+    positions = place.batch_block(_positions(b, s, x.device))
+    x, cache = trunk(params, x, cfg, prof, positions=positions, enc=enc,
+                     chunk=chunk, collect=True, max_seq=max(max_seq, s),
+                     place=place)
+    last = place.seq_gather(x)[:, -1:]
+    return _logits(params, last, cfg, place_of(prof, (b, 1))), cache
 
 
 # ------------------------------------------------------------------- cache
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
-               dtype=C) -> list:
+               dtype=C, prof: Profile = SMOKE) -> list:
     """Decode cache of zeros, one dict per layer: K/V rows in ``dtype``
     (``max_seq`` rows, a local layer ``min(window, max_seq)``), the
     recurrent states in float32; with an encoder also zero
-    cross-attention rows for ``n_frames`` frames."""
+    cross-attention rows for ``n_frames`` frames.  On a ``prof`` with a
+    mesh, the rank's shard (:func:`local_cache`)."""
+    if on_mesh(prof):
+        meta = init_cache(cfg, batch, max_seq, "meta", dtype)
+        return [{n: torch.zeros(t.shape, dtype=t.dtype, device=device)
+                 for n, t in c.items()}
+                for c in local_cache(meta, cfg, prof)]
     kv, hd = cfg.n_kv_heads, cfg.hd
     zeros = lambda rows: torch.zeros((batch, rows, kv, hd), dtype=dtype,
                                      device=device)
@@ -365,6 +465,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
             c.update(xk=zeros(cfg.n_frames), xv=zeros(cfg.n_frames))
         cache.append(c)
     return cache
+
+
+def local_cache(cache: list, cfg: ModelConfig, prof: Profile) -> list:
+    """The rank's shard of a whole decode cache under ``prof``'s mesh:
+    self-attention K/V by ``prof.cache_kv`` (the rank's heads where they
+    split over the model axis, else its block of the rows), every other
+    entry (recurrent states, cross-attention rows) the rank's batch rows,
+    whole on the model axis, as those layers compute."""
+    n_model = prof.mesh.size(prof.mesh.mesh_dim_names.index(prof.model_axis))
+    kvspec = prof.cache_kv(cfg.n_kv_heads, n_model)
+    out = []
+    for c in cache:
+        out.append({n: local_shard(t, kvspec if n in ("k", "v")
+                                   else P(prof.da), prof.mesh)
+                    for n, t in c.items()})
+    return out
 
 
 def cache_specs(cfg: ModelConfig, prof: Profile, model_size: int) -> list:
@@ -408,15 +524,34 @@ def _local_decode(p, x, c, pos, cfg: ModelConfig):
     return out.reshape(b, 1, h * hd) @ p["wo"]
 
 
-def decode_layer(p, x, c, kind: str, pos, cfg: ModelConfig,
-                 prof: Profile = SMOKE):
-    """One layer of a decode step in the parameters' dtype: x (B, 1, D)
-    -> the layer's output, its cache ``c`` updated in place."""
-    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    if kind == "attn":
-        h, _, _ = blocks.attn_decode(p["attn"], h, c["k"], c["v"], pos, cfg)
+def _attn_decode(p, x, c, kind: str, pos, cfg: ModelConfig, place: Place):
+    """One-token self-attention of x (B, 1, D) over the layer's cache
+    ``c`` (updated in place).  On a mesh x is the rank's batch rows, its
+    attention tensor-parallel over its cache shard: where the K/V heads
+    split over the model axis the shard is the rank's heads and the
+    decode the dense one on them (its ring for ``"local"``), else its
+    block of the rows (``blocks.decode_rows_tp``); the row-parallel
+    partial outputs are summed over the model axis."""
+    p = blocks.tp_weights(p, place, x.dtype)
+    if not blocks.kv_split(cfg, place):
+        out = blocks.decode_rows_tp(p, x, c["k"], c["v"], pos, cfg, place,
+                                    kind)
     elif kind == "local":
-        h = _local_decode(p["attn"], h, c, pos, cfg)
+        out = _local_decode(p, x, c, pos, blocks.local_heads(cfg, place))
+    else:
+        out = blocks.attn_decode(p, x, c["k"], c["v"], pos,
+                                 blocks.local_heads(cfg, place))[0]
+    return place.leave(out)
+
+
+def decode_layer(p, x, c, kind: str, pos, cfg: ModelConfig,
+                 prof: Profile = SMOKE, place: Place = ALONE):
+    """One layer of a decode step in the parameters' dtype: x (B, 1, D)
+    -> the layer's output, its cache ``c`` updated in place.  On a mesh
+    x is the rank's batch rows (B_b, 1, D) and ``c`` its cache shard."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if kind in ("attn", "local"):
+        h = _attn_decode(p["attn"], h, c, kind, pos, cfg, place)
     else:
         step = ssm.mamba_decode if kind == "mamba" else rglru.rglru_decode
         h, new = step(p["mixer"], h, c, cfg)
@@ -429,8 +564,8 @@ def decode_layer(p, x, c, kind: str, pos, cfg: ModelConfig,
         x = x + h
     if "mlp" in p or "moe" in p:
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + (moe.moe_apply(p["moe"], h, cfg, prof) if "moe" in p
-                 else blocks.mlp_apply(p["mlp"], h, cfg))
+        x = x + (moe.moe_apply(p["moe"], h, cfg, prof, place) if "moe" in p
+                 else blocks.mlp_apply(p["mlp"], h, cfg, place))
     return x
 
 
@@ -438,9 +573,13 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
                 prof: Profile = SMOKE):
     """One decode step in the parameters' dtype.  tokens (B, 1) int, pos
     (B,) int (position of the new token).  Returns (logits (B, 1,
-    padded_vocab), cache), the cache updated in place."""
-    x = params["embed"][tokens]                              # (B, 1, D)
+    padded_vocab), cache), the cache updated in place.  On a mesh
+    ``cache`` is the rank's shard (:func:`init_cache` with ``prof``) and
+    the logits are whole on every rank."""
+    place = place_of(prof, tokens.shape)
+    x = params["embed"][place.batch_block(tokens)]           # (B, 1, D)
+    pos = place.batch_block(pos)
     for p, kind, c in zip(params["layers"], layer_kinds(cfg), cache,
                           strict=True):
-        x = decode_layer(p, x, c, kind, pos, cfg, prof)
-    return _logits(params, x, cfg), cache
+        x = decode_layer(p, x, c, kind, pos, cfg, prof, place)
+    return _logits(params, x, cfg, place), cache

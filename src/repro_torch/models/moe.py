@@ -24,27 +24,32 @@ Two dispatch paths, chosen as the reference chooses them:
 - **expert parallelism** (``prof.enabled`` and ``prof.mesh`` set, at any
   number of ranks, one included): the reference's ``_moe_shardmap``
   GShard schedule over a ``DeviceMesh`` whose dims are the profile's
-  data axes and its model axis.  ``x`` enters whole and equal on every
-  rank, as every other layer keeps it; each rank takes its block (batch
-  over the data axes as ``prof.da`` says, the sequence over the model
-  axis where it divides, else whole, as at decode), routes it with the
-  capacity of the block's own tokens, sends expert chunk j to model rank
-  j (``all_to_all_single``; the received chunks concatenated along the
+  data axes and its model axis.  Each rank works on its block of the
+  tokens (batch over the data axes as ``prof.da`` says, the sequence
+  over the model axis where it divides, else whole, as at decode): the
+  block the model's residual stream already holds (``lm`` passes its
+  ``shardings.Place``), or one it takes from an ``x`` whole and equal on
+  every rank, whose output it then gathers back to the whole (B, S, D)
+  on every rank.  It routes the block with the capacity of the block's
+  own tokens, sends expert chunk j to model rank j
+  (``all_to_all_single``; the received chunks concatenated along the
   capacity axis in source order, as the reference's tiled
   ``all_to_all``), all-gathers its E/n_model experts' weight shards
   over the data axes (ZeRO), runs them, sends the outputs back,
-  combines, and gathers the blocks back to the whole (B, S, D) on every
-  rank.  Each step is a ``torch.autograd.Function`` with its adjoint:
+  combines, and adds the shared experts and the dense residual on the
+  block.  Each step is a ``torch.autograd.Function`` with its adjoint:
   the gather-out takes the rank's block, the block-in gathers the
   blocks' gradients (``dx`` whole and equal on every rank), the exchange
-  reverses, and the two sums, the router's over every rank and each
-  expert shard's over the data ranks, go through the fixed-ring
+  reverses, and the sums, the replicated weights' (router, shared
+  experts, dense residual) over every rank and each expert shard's over
+  the data ranks, go through the fixed-ring
   ``ordered_ring_reduce`` over the mesh's subgroups, so that a gradient
   is bitwise the same whatever the ranks' timing.  A gradient needs
   blocks that partition the tokens (the sequence split over the model
   axis and the batch over the data axes); a call whose blocks repeat
   tokens (a decode step's) runs forward only.  A rank holds its
-  experts' shards (:func:`local_moe`), every other weight whole.
+  experts' shards (:func:`local_moe`), every other weight of the layer
+  (the router, shared experts and dense residual) whole.
 """
 
 from __future__ import annotations
@@ -56,9 +61,8 @@ import torch.nn.functional as F
 from repro_torch.models.blocks import (C, _cast, _normal, init_mlp,
                                        mlp_apply, mlp_specs)
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim.ordered_reduce import ordered_ring_reduce
-from repro_torch.runtime.shardings import (SMOKE, P, Profile, axis_names,
-                                           local_shard)
+from repro_torch.runtime.shardings import (ALONE, SMOKE, Across, P, Place,
+                                           Profile, local_shard)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype=C) -> dict:
@@ -154,28 +158,45 @@ def _routed(xt, router, w1, w3, w2, cfg: ModelConfig, ep=None):
     pos, keep = dispatch_positions(flat_e, e, cap)
     x_e = dispatch(xt, flat_e, k, e, cap)
     if ep is not None:
-        x_e = _Across.apply(x_e, ep.exchange, ep.exchange_back)
+        x_e = Across.apply(x_e, ep.exchange, ep.exchange_back)
     y_e = expert_ffn(x_e, w1, w3, w2)
     if ep is not None:
-        y_e = _Across.apply(y_e, ep.exchange_back, ep.exchange)
+        y_e = Across.apply(y_e, ep.exchange_back, ep.exchange)
     return combine(y_e, flat_e, pos, keep, gate, t, k)
 
 
-def moe_apply(p, x, cfg: ModelConfig, prof: Profile = SMOKE):
+def moe_apply(p, x, cfg: ModelConfig, prof: Profile = SMOKE,
+              place: Place | None = None):
     """x (B, S, D) -> (B, S, D), in x's dtype (weights cast to it).  On a
     profile with a mesh, the expert-parallel schedule (module
-    docstring); ``p`` then holds the rank's expert shards."""
+    docstring); ``p`` then holds the rank's expert shards, and x is whole
+    on every rank or, with the ``place`` of a model's call
+    (``shardings.Place``), the rank's block of it, and so is the
+    output."""
     p = _cast(p, x.dtype)
-    b, s, d = x.shape
     if prof.enabled and prof.mesh is not None:
-        out = _expert_parallel(p, x, cfg, prof)
-    else:
-        out = _routed(x.reshape(b * s, d), p["router"], p["w1"], p["w3"],
-                      p["w2"], cfg).reshape(b, s, d)
-    if "shared" in p:
-        out = out + mlp_apply(p["shared"], x, cfg)
-    if "residual" in p:
-        out = out + mlp_apply(p["residual"], x, cfg)
+        if place is None or place is ALONE:     # x whole on every rank
+            ep = _ExpertMesh(cfg, prof, x.shape)
+            xl = Across.apply(x, ep.take_block, ep.gather_blocks)
+            return Across.apply(_expert_parallel(p, xl, cfg, ep),
+                                ep.gather_blocks, ep.take_block)
+        ep = _ExpertMesh(cfg, prof, place.shape)
+        if ep.seq_split != place.seq_split:     # other blocks
+            return place.whole_out(moe_apply(p, place.whole_in(x), cfg,
+                                             prof))
+        return _expert_parallel(p, x, cfg, ep)
+    b, s, d = x.shape
+    out = _routed(x.reshape(b * s, d), p["router"], p["w1"], p["w3"],
+                  p["w2"], cfg).reshape(b, s, d)
+    return _dense_parts(p, x, out, cfg)
+
+
+def _dense_parts(p, x, out, cfg: ModelConfig):
+    """``out`` plus the shared experts' and the dense residual's outputs
+    on x, where the layer has them."""
+    for name in ("shared", "residual"):
+        if name in p:
+            out = out + mlp_apply(p[name], x, cfg)
     return out
 
 
@@ -193,57 +214,18 @@ def local_moe(p: dict, cfg: ModelConfig, prof: Profile) -> dict:
                       for n in EXPERT_LEAVES})
 
 
-class _Across(torch.autograd.Function):
-    """A step of the schedule that crosses ranks: ``fwd(t)`` forward and
-    its adjoint ``bwd(grad)`` backward."""
-
-    @staticmethod
-    def forward(ctx, t, fwd, bwd):
-        ctx.bwd = bwd
-        return fwd(t)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return ctx.bwd(grad.contiguous()), None, None
-
-
-def _gather(t, group, dim: int):
-    """The group's tensors concatenated along ``dim`` in rank order."""
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=dim) if len(parts) > 1 else parts[0]
-
-
-def _block(t, dim: int, index: int, ways: int):
-    n = t.shape[dim] // ways
-    return t.narrow(dim, index * n, n)
-
-
-class _ExpertMesh:
-    """One rank's place in the schedule for an input of ``shape``: its
-    model group and coordinate, the data axes' groups (mesh order, major
-    first) with the rank's flat coordinate over them, and the blocks'
-    layout.  Refuses what the reference's ``shard_map`` refuses."""
+class _ExpertMesh(Place):
+    """One rank's place in the schedule for an input of ``shape``
+    (``shardings.Place``, the sequence split over the model axis where
+    it divides it, whatever ``seq_shard``).  Refuses what the
+    reference's ``shard_map`` refuses."""
 
     def __init__(self, cfg: ModelConfig, prof: Profile, shape):
-        mesh = prof.mesh
-        names = tuple(mesh.mesh_dim_names or ())
-        want = tuple(prof.data_axes) + (prof.model_axis,)
-        if prof.pure_dp or names != want:
-            raise ValueError(f"expert parallelism takes a mesh of dims "
-                             f"{want} and a profile without pure_dp; got "
-                             f"{names}{' and pure_dp' * prof.pure_dp}")
-        coord = mesh.get_coordinate()
-        axis = lambda a: (mesh.get_group(a), mesh.size(names.index(a)),
-                          coord[names.index(a)])
-        self.model, self.n_model, self.m = axis(prof.model_axis)
+        super().__init__(prof, shape, seq_shard=True)
         if cfg.n_experts % self.n_model:
             raise ValueError(f"{cfg.n_experts} experts do not split over "
                              f"the model axis {prof.model_axis!r} of "
                              f"{self.n_model} ranks")
-        self.data = [axis(a) for a in prof.data_axes]
-        self.n_data, self.i_data = self._flat(self.data)
         if not prof.fsdp and self.n_data > 1:
             # the reference gathers the expert shards over the data axes,
             # so it takes them cut there; the gradients' sum over the
@@ -251,37 +233,8 @@ class _ExpertMesh:
             raise ValueError(f"expert parallelism over the data axes "
                              f"{tuple(prof.data_axes)} of {self.n_data} "
                              f"ranks takes a profile with fsdp")
-        self.batch = [axis(a) for a in axis_names(prof.da)]
-        b, s, _ = shape
-        self.n_batch, self.i_batch = self._flat(self.batch)
-        if b % self.n_batch:
-            raise ValueError(f"a batch of {b} does not split over the data "
-                             f"axes {axis_names(prof.da)} of {self.n_batch} "
-                             f"ranks")
-        self.seq_split = s % self.n_model == 0 and s >= self.n_model
         # the blocks partition the tokens: each rank's are its own
         self.partition = self.seq_split and self.n_batch == self.n_data
-
-    @staticmethod
-    def _flat(axes) -> tuple[int, int]:
-        n, i = 1, 0
-        for _, size, c in axes:
-            n, i = n * size, i * size + c
-        return n, i
-
-    # the block of x (B, S, ...) and its inverse
-    def take_block(self, x):
-        x = _block(x, 0, self.i_batch, self.n_batch)
-        if self.seq_split:
-            x = _block(x, 1, self.m, self.n_model)
-        return x.contiguous()
-
-    def gather_blocks(self, x):
-        if self.seq_split:
-            x = _gather(x, self.model, 1)
-        for group, _, _ in reversed(self.batch):    # minor axes first
-            x = _gather(x, group, 0)
-        return x
 
     # the exchange of expert blocks over the model axis and its inverse
     def exchange(self, x_e):
@@ -305,32 +258,13 @@ class _ExpertMesh:
         dist.all_to_all_single(out, send, group=self.model)
         return out.view(n * el, ncap // n, d)
 
-    # ZeRO: an expert shard gathered over the data axes and its adjoint
-    def gather_weight(self, w):
-        for group, _, _ in reversed(self.data):
-            w = _gather(w, group, 1)
-        return w
 
-    def reduce_weight_grad(self, g):
-        for group, _, _ in self.data:
-            g = ordered_ring_reduce(g, group)
-        return _block(g, 1, self.i_data, self.n_data).contiguous()
-
-    # a replicated input (the router) and its gradient's sum over ranks
-    @staticmethod
-    def replicated(t):
-        return t.view_as(t)
-
-    def reduce_replicated_grad(self, g):
-        for group in [self.model] + [group for group, _, _ in self.data]:
-            g = ordered_ring_reduce(g, group)
-        return g
-
-
-def _expert_parallel(p, x, cfg: ModelConfig, prof: Profile):
-    """The routed experts of x (B, S, D) by the expert-parallel schedule
-    (module docstring): (B, S, D), whole on every rank."""
-    ep = _ExpertMesh(cfg, prof, x.shape)
+def _expert_parallel(p, xl, cfg: ModelConfig, ep: _ExpertMesh):
+    """The layer on the rank's block xl (B_b, S_b, D) by the
+    expert-parallel schedule (module docstring): the rank's block of the
+    output.  The router's, the shared experts' and the dense residual's
+    weights are whole on every rank, their gradients summed over every
+    rank."""
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
     el = e // ep.n_model
     for name, shape in (("w1", (el, d // ep.n_data, f)),
@@ -341,18 +275,17 @@ def _expert_parallel(p, x, cfg: ModelConfig, prof: Profile):
                              f"the rank's shard is {shape}: carry the "
                              f"weights across with lm.local_params")
     if not ep.partition and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, p["router"], p["w1"])):
+            t.requires_grad for t in (xl, p["router"], p["w1"])):
         raise ValueError("the ranks' blocks repeat tokens (the sequence "
                          "not split over the model axis, or the batch not "
                          "over the data axes): such a call carries no "
                          "gradient")
-    xl = _Across.apply(x, ep.take_block, ep.gather_blocks)
     bl, sl, _ = xl.shape
-    router = _Across.apply(p["router"], ep.replicated,
-                           ep.reduce_replicated_grad)
-    w1, w3, w2 = (_Across.apply(p[n], ep.gather_weight,
-                                ep.reduce_weight_grad)
-                  for n in EXPERT_LEAVES)
-    y = _routed(xl.reshape(bl * sl, d), router, w1, w3, w2, cfg, ep)
-    return _Across.apply(y.reshape(bl, sl, d), ep.gather_blocks,
-                         ep.take_block)
+    whole = lambda w: ep.shared(w, model=True)
+    # ZeRO: each expert shard gathered over the data axes at use
+    w1, w3, w2 = (ep.zero(p[n], 1) for n in EXPERT_LEAVES)
+    y = _routed(xl.reshape(bl * sl, d), whole(p["router"]), w1, w3, w2, cfg,
+                ep).reshape(bl, sl, d)
+    dense = {n: {k: whole(w) for k, w in p[n].items()}
+             for n in ("shared", "residual") if n in p}
+    return _dense_parts(dense, xl, y, cfg)

@@ -20,17 +20,32 @@ major to minor) or ``None`` (replicated); a spec shorter than its
 tensor's rank leaves the trailing dims replicated.
 :func:`to_placements` turns one into the ``torch.distributed.tensor``
 placements of a ``DeviceMesh``, and :func:`local_shard` cuts a rank's
-shard of a whole tensor.  Of the model functions only the MoE layer
-reads the mesh (expert parallelism, ``models/moe.py``): ``lm.forward``,
-``prefill``, ``decode_step``, the train step and the serving session
-take a profile and hand it to it.  Tensor and sequence parallelism of
-the other sublayers (the reference's ``cons`` in ``lm._sublayer``) is
-not ported; every rank computes those whole.
+shard of a whole tensor.
+
+On a profile with a mesh the model runs SPMD, one process per card, and
+:class:`Place` is a rank's place on it for one call: its blocks of the
+batch (over the data axes) and of the sequence (over the model axis),
+and the collectives that cross ranks, each a :class:`Across` step with
+its adjoint.  Without a mesh the place is :data:`ALONE`, whose blocks
+are the whole and whose steps are the identity, so one body of each
+model function serves both (:func:`place_of`).  The reference's ``cons`` constraints become those steps
+(``models/lm.py``): the sequence gathered at each attention and MLP
+sublayer's entry and reduce-scattered at its exit (Megatron-SP), the
+ZeRO gather of FSDP shards, the logits gathered from their vocab blocks.
+Every sum over ranks goes through the fixed-ring ``ordered_ring_reduce``
+(a reduce-scatter is that sum, then the rank's block), so a result is
+bitwise the same whatever the ranks' timing; ``cons`` itself stays the
+identity on a mesh of one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.optim.ordered_reduce import ordered_ring_reduce
 
 
 class P(tuple):
@@ -258,3 +273,226 @@ def local_shard(t, spec, mesh):
             n = t.shape[dim] // w
             out = out.narrow(dim, i * n, n)
     return t if out is t else out.clone()
+
+
+# ------------------------------------------------ collectives on a mesh
+class Across(torch.autograd.Function):
+    """A step that crosses ranks: ``fwd(t)`` forward and its adjoint
+    ``bwd(grad)`` backward."""
+
+    @staticmethod
+    def forward(ctx, t, fwd, bwd):
+        ctx.bwd = bwd
+        out = fwd(t)
+        return out.view_as(out) if out is t else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.bwd(grad.contiguous()), None, None
+
+
+def gather(t, group, dim: int):
+    """The group's tensors concatenated along ``dim`` in rank order
+    (``t`` itself in a group of one)."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def block(t, dim: int, index: int, ways: int):
+    """Block ``index`` of ``ways`` equal blocks of ``t`` along ``dim``."""
+    n = t.shape[dim] // ways
+    return t.narrow(dim, index * n, n)
+
+
+def _same(t):
+    return t.view_as(t)
+
+
+class Place:
+    """One rank's place on ``prof``'s mesh for a call over an input of
+    ``shape`` (B, S, ...): its model group and coordinate, the data
+    axes' groups (mesh order, major first) with its flat coordinate over
+    them, the batch's blocks over the axes of ``prof.da`` and whether
+    the sequence splits over the model axis (``seq_split``: it divides
+    it, and ``seq_shard`` asks for it).  Refuses a mesh whose dims are
+    not the profile's data axes and model axis, and ``pure_dp``."""
+
+    def __init__(self, prof: Profile, shape, *, seq_shard: bool | None = None):
+        mesh = prof.mesh
+        names = tuple(mesh.mesh_dim_names or ())
+        want = tuple(prof.data_axes) + (prof.model_axis,)
+        if prof.pure_dp or names != want:
+            raise ValueError(f"a model on a mesh takes a mesh of dims "
+                             f"{want} and a profile without pure_dp; got "
+                             f"{names}{' and pure_dp' * prof.pure_dp}")
+        self.prof = prof
+        coord = mesh.get_coordinate()
+        axis = lambda a: (mesh.get_group(a), mesh.size(names.index(a)),
+                          coord[names.index(a)])
+        self.model, self.n_model, self.m = axis(prof.model_axis)
+        self.data = [axis(a) for a in prof.data_axes]
+        self.n_data, self.i_data = self._flat(self.data)
+        self.batch = [axis(a) for a in axis_names(prof.da)]
+        self.n_batch, self.i_batch = self._flat(self.batch)
+        b, s = shape[0], shape[1]
+        if b % self.n_batch:
+            raise ValueError(f"a batch of {b} does not split over the data "
+                             f"axes {axis_names(prof.da)} of {self.n_batch} "
+                             f"ranks")
+        split = prof.seq_shard if seq_shard is None else seq_shard
+        self.seq_split = bool(split and s % self.n_model == 0
+                              and s >= self.n_model)
+        self.shape = (b, s)
+
+    @staticmethod
+    def _flat(axes) -> tuple[int, int]:
+        n, i = 1, 0
+        for _, size, c in axes:
+            n, i = n * size, i * size + c
+        return n, i
+
+    def _reduce(self, g, model: bool):
+        """The fixed-ring sum of ``g`` over the batch's groups and, with
+        ``model``, the model group."""
+        groups = [group for group, _, _ in self.batch]
+        for group in ([self.model] if model else []) + groups:
+            g = ordered_ring_reduce(g, group)
+        return g
+
+    # the rank's block of a (B, S, ...) tensor and its inverse
+    def batch_block(self, x):
+        return block(x, 0, self.i_batch, self.n_batch)
+
+    def take_block(self, x):
+        x = self.batch_block(x)
+        if self.seq_split:
+            x = block(x, 1, self.m, self.n_model)
+        return x.contiguous()
+
+    def gather_blocks(self, x):
+        if self.seq_split:
+            x = gather(x, self.model, 1)
+        for group, _, _ in reversed(self.batch):    # minor axes first
+            x = gather(x, group, 0)
+        return x
+
+    # a computation that every rank runs whole and alike (the layers
+    # without tensor parallelism): its input and output whole on every
+    # rank, and so their cotangents
+    def whole_in(self, h):
+        return Across.apply(h, self.gather_blocks, self.take_block)
+
+    def whole_out(self, y):
+        return Across.apply(y, self.take_block, self.gather_blocks)
+
+    # Megatron-SP: a sublayer's entry gathers the sequence, its exit sums
+    # the ranks' partial outputs into the rank's sequence block
+    def seq_gather(self, x):
+        """The rank's sequence block gathered whole over the model axis
+        (no adjoint: a step that carries no gradient)."""
+        return gather(x, self.model, 1) if self.seq_split else x
+
+    def _seq_sum(self, x):
+        x = ordered_ring_reduce(x, self.model)
+        if self.seq_split:
+            x = block(x, 1, self.m, self.n_model).contiguous()
+        return x
+
+    def enter(self, h):
+        """h (B_b, S_b, D), the rank's block, as the column-parallel
+        projections take it: the sequence gathered over the model axis
+        (the adjoint sums the ranks' partial cotangents into the block)."""
+        return Across.apply(h, self.seq_gather, self._seq_sum)
+
+    def leave(self, y):
+        """The row-parallel partial outputs (B_b, S, D) summed over the
+        model axis into the rank's block."""
+        return Across.apply(y, self._seq_sum, self.seq_gather)
+
+    def gather_heads(self, t):
+        """A column-parallel projection's blocks (..., F / n_model)
+        gathered over the model axis, for ranks that use every column
+        (grouped K/V heads that do not split over it)."""
+        return Across.apply(
+            t, lambda x: gather(x, self.model, -1),
+            lambda g: block(ordered_ring_reduce(g, self.model), -1, self.m,
+                            self.n_model).contiguous())
+
+    def gather_logits(self, t):
+        """(B_b, S, V / n_model) vocab blocks -> the whole (B, S, V),
+        the same on every rank (the loss is computed whole on each)."""
+        def fwd(x):
+            x = gather(x, self.model, -1)
+            for group, _, _ in reversed(self.batch):
+                x = gather(x, group, 0)
+            return x
+
+        def bwd(g):
+            return block(self.batch_block(g), -1, self.m,
+                         self.n_model).contiguous()
+        return Across.apply(t, fwd, bwd)
+
+    # parameters
+    def shared(self, w, model: bool):
+        """A leaf every rank holds whole, used on the rank's tokens: its
+        gradient summed over the batch's groups and, with ``model``, the
+        model group, so that every rank gets the whole gradient."""
+        return Across.apply(w, _same, lambda g: self._reduce(g, model))
+
+    def zero(self, w, dim: int):
+        """A tensor-parallel leaf as the rank uses it: its FSDP shard
+        (``prof.fsdp``: dim ``dim`` cut over the data axes) gathered over
+        the data axes (ZeRO), the gradient summed over the batch's groups
+        and cut back to the shard."""
+        if not (self.prof.fsdp and self.data):
+            return self.shared(w, model=False)
+
+        def fwd(x):
+            for group, _, _ in reversed(self.data):
+                x = gather(x, group, dim)
+            return x
+
+        def bwd(g):
+            g = self._reduce(g, model=False)
+            return block(g, dim, self.i_data, self.n_data).contiguous()
+        return Across.apply(w, fwd, bwd)
+
+
+def _as_is(x, *args, **kwargs):
+    return x
+
+
+class Alone(Place):
+    """The place of the one process of a profile without a mesh: every
+    block is the whole and every step across ranks returns its input, no
+    autograd step added, so the model's calls on it are the dense ones at
+    no cost."""
+
+    n_model = n_batch = n_data = 1
+    m = i_batch = i_data = 0
+    model = None
+    data = batch = ()
+    seq_split = False
+
+    def __init__(self):
+        pass
+
+    batch_block = take_block = gather_blocks = whole_in = whole_out = \
+        seq_gather = enter = leave = gather_heads = gather_logits = \
+        shared = zero = staticmethod(_as_is)
+
+
+ALONE = Alone()
+
+
+def place_of(prof: Profile, shape) -> Place:
+    """The rank's :class:`Place` for a call over an input of ``shape``
+    on ``prof``'s mesh, or :data:`ALONE` on a profile without one."""
+    if prof.enabled and prof.mesh is not None:
+        return Place(prof, shape)
+    return ALONE

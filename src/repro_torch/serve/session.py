@@ -21,9 +21,13 @@ As in the reference: every slot decodes each step (the batch is
 it is dropped); greedy decoding takes the argmax over the padded vocab.
 
 ``prof`` (``SMOKE`` by default) goes to ``lm.decode_step`` and
-``lm.prefill``: with a mesh in it, the MoE layers run expert
-parallelism and ``params`` is a rank's tree (``lm.local_params``);
-every rank holds the same whole session and emits the same tokens.
+``lm.prefill``: with a mesh in it every rank runs the session SPMD on
+its shards (``params`` a rank's tree, ``lm.local_params``; the decode
+cache its shard, ``lm.init_cache``), emits the same tokens, and holds
+and commits the page metadata of its own slots (its block of the batch
+over the data axes) through the ordered paged-commit kernel; the
+fingerprint gathers the ranks' pages in slot order, the dense
+session's value on every rank.
 :meth:`Session.prefill` admits a prompt in every slot at once, a step
 the reference's session does not have.
 """
@@ -39,7 +43,7 @@ from repro_torch.core.sequencer import RoundRobinSequencer
 from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
-from repro_torch.runtime.shardings import SMOKE, Profile
+from repro_torch.runtime.shardings import SMOKE, Profile, gather, place_of
 
 META_WIDTH = 8   # float32 entries of one page row
 
@@ -57,14 +61,19 @@ class Session:
     def __post_init__(self):
         self.device = torch.device(self.device)
         self.cache = lm.init_cache(self.cfg, self.n_slots, self.max_seq,
-                                   self.device)
+                                   self.device, prof=self.prof)
+        # the slots whose pages this process holds and commits
+        self.place = place_of(self.prof, (self.n_slots, 1))
+        held = self.n_slots // self.place.n_batch
+        self.first_slot = held * self.place.i_batch
+        self.held_slots = held
         self.pos = np.zeros((self.n_slots,), np.int32)       # host copy
         self.tokens = torch.zeros((self.n_slots, 1), dtype=torch.int64,
                                   device=self.device)
         self.active = np.zeros((self.n_slots,), bool)
         self.seqr = RoundRobinSequencer(n_root_lanes=self.n_slots)
         # paged metadata store (shared state under Pot commit)
-        n_pages = self.n_slots * (self.max_seq // self.page_size)
+        n_pages = self.held_slots * (self.max_seq // self.page_size)
         self.page_meta = torch.zeros((n_pages, self.page_size, META_WIDTH),
                                      dtype=torch.float32, device=self.device)
         self.page_versions = torch.zeros((n_pages,), dtype=torch.int32,
@@ -116,18 +125,24 @@ class Session:
         nxt_host = nxt.cpu().numpy().astype(np.int32)
 
         # ---- Pot commit of page metadata, in sequencer order, in place
-        slots = [s for s in range(self.n_slots) if self.active[s]]
-        if slots:
+        # (of the slots this process holds)
+        active = [s for s in range(self.n_slots) if self.active[s]]
+        order = np.asarray(self.seqr.order_for(active)) if active else None
+        mine = [i for i, s in enumerate(active)
+                if 0 <= s - self.first_slot < self.held_slots]
+        if mine:
+            slots = [active[i] for i in mine]
             n = len(slots)
             at = self.pos[slots]
             # page_idx, row_idx, sn and commit (int32), then the rows'
             # float32 bits: one buffer, one copy to the device
             host = np.empty((4 + META_WIDTH) * n, np.int32)
             meta = host[:4 * n].reshape(4, n)
-            meta[0] = (np.asarray(slots) * (self.max_seq // self.page_size)
+            meta[0] = ((np.asarray(slots) - self.first_slot)
+                       * (self.max_seq // self.page_size)
                        + at // self.page_size)
             meta[1] = at % self.page_size
-            meta[2] = self.seqr.order_for(slots)
+            meta[2] = order[mine]
             meta[3] = 1
             host[4 * n:].view(np.float32).reshape(n, META_WIDTH)[:] = \
                 nxt_host[slots, None]
@@ -153,9 +168,13 @@ class Session:
         """Order-sensitive FNV-1a hash of every 97th byte of the versions
         (int32) and then of the metadata (float32), little-endian — the
         replica consistency check."""
+        versions, meta = self.page_versions, self.page_meta
+        for group, _, _ in reversed(self.place.batch):  # every rank's
+            versions = gather(versions, group, 0)         # in slot order
+            meta = gather(meta, group, 0)
         h = 0x811C9DC5
-        for x in (self.page_versions.cpu().numpy().astype("<i4").tobytes(),
-                  self.page_meta.cpu().numpy().astype("<f4").tobytes()):
+        for x in (versions.cpu().numpy().astype("<i4").tobytes(),
+                  meta.cpu().numpy().astype("<f4").tobytes()):
             for chunk in x[::97]:
                 h = ((h ^ chunk) * 0x01000193) & 0xFFFFFFFF
         return h

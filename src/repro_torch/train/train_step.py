@@ -25,14 +25,16 @@ Parameters are float32 master weights; the model casts them to bf16 at
 use.  A step returns ``(new_state, loss)`` and leaves the state it was
 given as it was.  The optimizer is AdamW or Adafactor.
 ``make_train_step`` takes the reference's profile (``prof``, ``SMOKE``
-by default) and hands it to the model, where only the MoE layer reads
-its mesh: on one, every rank holds the same state but its own experts'
-shards (``lm.local_params``), computes the same loss from the whole
-batch, and the schedule's gradient sums (``models/moe.py``) leave each
-leaf's gradient whole and equal on every rank, an expert shard's that
-of the shard; each rank then commits its own leaves with AdamW.  Tensor
-and sequence parallelism of the other sublayers is not ported, and the
-reference's ``grad_specs`` pins have nothing to pin.
+by default) and hands it to the model.  On a mesh every rank holds its
+own shards of the state (``lm.local_params``: the attention and MLP
+weights and the experts cut by their specs, every other leaf whole),
+runs the model SPMD on its block of the batch and sequence
+(``models/lm.py``) and computes the same loss from the logits gathered
+whole; the backward pass's ordered sums over ranks leave every whole
+leaf's gradient whole and equal on every rank and a shard's that of the
+shard, and each rank commits its own leaves with AdamW (one fused
+kernel a leaf on the card).  The reference's ``grad_specs`` pins have
+nothing to pin: each rank's gradients already have its leaves' shapes.
 ``make_train_step`` and ``make_pot_dp_step`` train all
 ten architectures: every layer kind (``"attn"``, ``"local"``,
 ``"mamba"``, ``"rglru"``), dense and MoE MLPs, internvl2's ``patches``
@@ -168,9 +170,9 @@ def make_train_step(cfg: ModelConfig, *, prof: Profile = SMOKE,
                     wd=0.01):
     """A train step ``step(state, batch) -> (state', loss)``.  mode:
     ``"baseline"`` | ``"pot"``.  With a mesh in ``prof`` the state is a
-    rank's (module docstring) and the optimizer AdamW: Adafactor's
-    factored statistics of an expert shard would be the shard's, not
-    the whole leaf's."""
+    rank's (module docstring), ``batch`` the whole batch on every rank,
+    and the optimizer AdamW: Adafactor's factored statistics of a shard
+    would be the shard's, not the whole leaf's."""
     upd = _optimizer(optimizer, lr, wd)
     if mode not in ("baseline", "pot"):
         raise ValueError(f"mode must be 'baseline' or 'pot', got {mode!r}")

@@ -252,8 +252,8 @@ def _moe_ep_model(case, cfg, prof) -> dict:
             out["logits"] = lm.forward(params, tokens, cfg, prof).numpy()
         out["forward_routing"] = rec
         out["prefill"] = lm.prefill(params, tokens, cfg, prof)[0].numpy()
-        cache = convert.lm_cache_from_numpy(case["cache"], cfg, "cpu",
-                                            torch.float32)
+        cache = lm.local_cache(convert.lm_cache_from_numpy(
+            case["cache"], cfg, "cpu", torch.float32), cfg, prof)
         with _routing([]) as rec:
             logits, cache = lm.decode_step(
                 params, cache, torch.from_numpy(case["dec_tokens"]),
@@ -429,4 +429,265 @@ def moe_ep_world1_worker(rank, world, init, archs, out):
             runs.append([t.detach() for t in run])
         assert same(*runs), f"{arch}: the schedule differs from the dense path"
     open(out, "w").close()
+    dist.destroy_process_group()
+
+
+def store_mesh_worker(rank, world, init, snap_dir, out, part):
+    """One store shard per rank (``tests/_torch_store_mesh.py``): 1-D
+    ``("shard",)`` meshes of 1, 2 and 8 ranks, each cut from a 2-D mesh
+    of the world.  Records, as numpy, for ``part`` "reference": PCC on
+    ``shard_store(dense, s, mesh=)`` for each (workload, mesh size) of
+    ``RUNS``, a ``PotSession(shards=8, mesh=)`` over the counters batch
+    and the wrong-sized meshes' refusals; for "engines": every engine
+    over a stream of two counters batches on the meshes of
+    ``ENGINE_SIZES`` at depth 0 and 2, beside the dense session's, and
+    snapshots from 8 ranks into the dense store and from the dense store
+    into 8 ranks, and a replica killed and resumed on 8 ranks against the
+    dense one.  Rank r writes ``{out}.{r}.pkl``."""
+    import pickle
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import _torch_store_mesh as sm
+    from repro_torch.core import workloads as W
+    _join(rank, world, init)
+    meshes = {s: init_device_mesh("cpu", (world // s, s),
+                                  mesh_dim_names=("rep", "shard"))["shard"]
+              for s in sm.SIZES}
+    wls = sm.workloads(W, device="cpu")
+    if part == "reference":
+        result = _store_mesh_reference(wls, meshes)
+    else:
+        result = _store_mesh_engines(wls["counters"], meshes, snap_dir, rank)
+    with open(f"{out}.{rank}.pkl", "wb") as f:
+        pickle.dump(result, f)
+    dist.destroy_process_group()
+
+
+def _store_mesh_reference(wls, meshes) -> dict:
+    import _torch_store_mesh as sm
+    from repro_torch import convert
+    from repro_torch.core.pcc import pcc_execute
+    from repro_torch.core.sequencer import RoundRobinSequencer
+    from repro_torch.core.session import PotSession
+    from repro_torch.core.tstore import (ShardedStore, fingerprint,
+                                         make_store, shard_store)
+    result = {}
+    for name, s in sm.RUNS:
+        wl = wls[name]
+        seq = torch.as_tensor(RoundRobinSequencer(n_root_lanes=wl.n_lanes)
+                              .order_for(wl.lanes.tolist()),
+                              dtype=torch.int32)
+        sharded = shard_store(make_store(wl.n_objects, device="cpu"), s,
+                              mesh=meshes[s])
+        assert isinstance(sharded, ShardedStore)
+        assert tuple(sharded.values.shape) == (1, -(-wl.n_objects // s), 1)
+        store, trace = pcc_execute(sharded, wl.batch, seq)
+        result[(name, s)] = dict(fingerprint=fingerprint(store),
+                                 trace=convert.trace_to_numpy(trace))
+    wl = wls["counters"]
+    sess = PotSession(wl.n_objects, engine="pcc", n_lanes=wl.n_lanes,
+                      shards=8, mesh=meshes[8], device="cpu")
+    trace = sess.submit(wl.batch, wl.lanes.tolist())
+    result["session"] = dict(fingerprint=sess.fingerprint(),
+                             replay=sess.replay_log(),
+                             trace=convert.trace_to_numpy(trace))
+    refusals = {}
+    for tag, call in (
+            ("shard_store", lambda: shard_store(make_store(80, device="cpu"),
+                                                4, mesh=meshes[8])),
+            ("make_store", lambda: make_store(80, shards=2, mesh=meshes[8],
+                                              device="cpu")),
+            ("session", lambda: PotSession(80, shards=1, mesh=meshes[2],
+                                           device="cpu")),
+            ("not_a_mesh", lambda: make_store(80, shards=2, mesh=object(),
+                                              device="cpu"))):
+        try:
+            call()
+            refusals[tag] = None
+        except ValueError as e:
+            refusals[tag] = str(e)
+    result["refusals"] = refusals
+    return result
+
+
+def _store_mesh_engines(wl, meshes, snap_dir, rank) -> dict:
+    import os
+
+    import _torch_store_mesh as sm
+    from repro_torch import convert
+    from repro_torch.core import workloads as W
+    from repro_torch.core.checkpoint import (FaultInjected, FaultPlan,
+                                             run_replica)
+    from repro_torch.core.ingress import IngressPool, programs_from_batch
+    from repro_torch.core.session import PotSession
+    from repro_torch.core.tstore import unshard_store
+    lanes = wl.lanes.tolist()
+    second = W.counters(**dict(sm.COUNTERS, seed=7), device="cpu")
+    stream = [wl.batch, second.batch]
+    stream_lanes = [lanes, second.lanes.tolist()]
+
+    def run(**kw):
+        s = PotSession(wl.n_objects, n_lanes=wl.n_lanes, device="cpu", **kw)
+        ts = s.run_stream(stream, stream_lanes)
+        return dict(fingerprint=s.fingerprint(), replay=s.replay_log(),
+                    traces=[convert.trace_to_numpy(t) for t in ts],
+                    spec=sum(int(t.spec_executed) for t in ts))
+
+    result = {}
+    for engine in sm.ENGINES:
+        for depth in (0, 2):
+            result[("engine", engine, depth, 0)] = run(
+                engine=engine, pipeline_depth=depth)
+            for s in sm.ENGINE_SIZES[depth]:
+                result[("engine", engine, depth, s)] = run(
+                    engine=engine, pipeline_depth=depth, shards=s,
+                    mesh=meshes[s])
+
+    # snapshots: 8 ranks -> the dense store, the dense store -> 8 ranks
+    snap8 = os.path.join(snap_dir, "mesh8")
+    snap1 = os.path.join(snap_dir, f"dense.{rank}")
+    s8 = PotSession(wl.n_objects, n_lanes=wl.n_lanes, shards=8,
+                    mesh=meshes[8], device="cpu")
+    s8.submit(wl.batch, lanes)
+    s8.snapshot(snap8)
+    dense, _ = PotSession.restore(snap8, shards=1, device="cpu")
+    s1 = PotSession(wl.n_objects, n_lanes=wl.n_lanes, device="cpu")
+    s1.submit(wl.batch, lanes)
+    s1.snapshot(snap1)
+    back, _ = PotSession.restore(snap1, shards=8, mesh=meshes[8],
+                                 device="cpu")
+    sessions = (dense, back, s1, s8)
+    for s in sessions:
+        s.submit(second.batch, second.lanes.tolist())
+    result["snapshots"] = dict(
+        dense_layout=(type(dense.store).__name__, dense.store.layout.shards),
+        back_layout=(type(back.store).__name__, back.store.layout.shards,
+                     tuple(back.store.values.shape)),
+        fingerprints=[s.fingerprint() for s in sessions],
+        replays=[s.replay_log() for s in sessions],
+        images=[convert.store_to_numpy(unshard_store(s.store))
+                for s in sessions])
+
+    # a replica on 8 ranks killed after batch 3 and resumed from its
+    # last snapshot, against the dense replica served through
+    pool = IngressPool(capacity=512)
+    for i, p in enumerate(programs_from_batch(wl.batch)):
+        pool.admit(p, lane=i % wl.n_lanes, fee=i % 5)
+    journal = pool.arrival_journal()
+    kw = dict(n_objects=wl.n_objects, n_lanes=wl.n_lanes, budgets=(7, 11),
+              device="cpu")
+    base = run_replica(journal, directory=os.path.join(
+        snap_dir, f"replica.{rank}"), snapshot_every=0, **kw)
+    victim = os.path.join(snap_dir, "replica_mesh8")
+    mesh_kw = dict(kw, shards=8, mesh=meshes[8], snapshot_every=2)
+    try:
+        run_replica(journal, directory=victim, fault_plan=FaultPlan(
+            kill_batch=3, action="raise"), **mesh_kw)
+    except FaultInjected:
+        pass
+    rec = run_replica(journal, directory=victim, resume=True, **mesh_kw)
+    result["replica"] = dict(
+        restored_from=rec.session.restored_from,
+        layout=rec.session.store.layout.shards,
+        fingerprints=(base.session.fingerprint(), rec.session.fingerprint()),
+        replays=(base.session.replay_log(), rec.session.replay_log()))
+    return result
+
+
+def _tp_layer(case, cfg, prof) -> dict:
+    from repro_torch import convert
+    from repro_torch.models import lm
+    from repro_torch.runtime.shardings import Place
+    from repro_torch.tree import leaves
+    layer = convert.lm_params_from_numpy(case["params"], cfg, "cpu",
+                                         torch.float32, prof)["layers"][0]
+    leaf = [t.requires_grad_(True) for t in leaves(layer)]
+    x = torch.from_numpy(case["x"]).requires_grad_(True)
+    place = Place(prof, x.shape)
+    b, s, _ = x.shape
+    pos = torch.arange(s)[None].expand(b, s)
+    y, _ = lm._sublayer(layer, place.whole_out(x), kind=cfg.pattern[0],
+                        cfg=cfg, prof=prof, place=place,
+                        positions=place.batch_block(pos), enc=None,
+                        causal=True, chunk=0, collect=False, max_seq=0)
+    y = place.whole_in(y)
+    grads = torch.autograd.grad(y, [x] + leaf, torch.from_numpy(case["ct"]))
+    return dict(y=y.detach().numpy(), gx=grads[0].numpy(),
+                gp=[g.numpy() for g in grads[1:]])
+
+
+def _tp_model(case, cfg, prof, session: bool) -> dict:
+    import _torch_tp as tp
+    from repro_torch import convert
+    from repro_torch.models import lm
+    from repro_torch.serve.session import Session
+    params = convert.lm_params_from_numpy(case["params"], cfg, "cpu",
+                                          torch.float32, prof)
+    tokens = torch.from_numpy(case["tokens"])
+    extra = {k: torch.from_numpy(v) for k, v in case["extra"].items()}
+    kw = {}
+    if "frames" in extra:
+        kw["enc"] = lm.encode(params, extra["frames"], cfg)
+    if "patches" in extra:
+        kw["prefix_embeds"] = extra["patches"]
+    out = {}
+    with torch.no_grad():
+        out["logits"] = lm.forward(params, tokens, cfg, prof, **kw).numpy()
+        last, cache = lm.prefill(params, tokens, cfg, prof,
+                                 max_seq=tp.MAX_SEQ, **kw)
+        out["prefill"] = last.numpy()
+        out["cache"] = [{n: t.numpy() for n, t in c.items()} for c in cache]
+        cache = lm.local_cache(convert.lm_cache_from_numpy(
+            case["cache"], cfg, "cpu", torch.float32), cfg, prof)
+        logits, cache = lm.decode_step(
+            params, cache, torch.from_numpy(case["dec_tokens"]),
+            torch.from_numpy(case["pos"]), cfg, prof)
+        out["decode"] = logits.numpy()
+        if session:
+            sess = Session(cfg, params, n_slots=tokens.shape[0], max_seq=32,
+                           device="cpu", prof=prof)
+            first = sess.prefill(tokens[:, :8])
+            out["session"] = np.concatenate(
+                [first[:, None], sess.generate(4)], axis=1)
+            out["fingerprint"] = sess.fingerprint()
+    return out
+
+
+def tp_worker(rank, world, init, inputs, out, parts):
+    """The port's tensor- and sequence-parallel attention and MLP on a
+    (2, 4) ("data", "model") mesh of gloo ranks, in float32 (``C`` set in
+    the port's model modules), for each arch of the pickled ``inputs``
+    (the reference's numpy weights and the inputs, with an encoder's
+    frames or a patch prefix where the arch takes them): ``parts`` of
+    "layer" (the first layer's output and gradients, its input whole on
+    every rank), "model" (``lm.forward``, ``lm.prefill`` and its cache
+    shard, a ``decode_step`` from a cut random cache), "session" (with
+    "model": a ``Session`` prefill and 4 steps with its fingerprint) and
+    "train" (one pot step, AdamW, 2
+    microbatches, twice: the second time the rank at data 1, model 0
+    joins each backward late).  Rank r writes ``{out}.{r}.pkl``."""
+    import pickle
+
+    from repro_torch.configs import get_smoke_config
+    _join(rank, world, init)
+    _f32_models()
+    mesh, prof = _mesh_profile((2, world // 2))
+    with open(inputs, "rb") as f:
+        cases = pickle.load(f)
+    result = {"coord": tuple(mesh.get_coordinate())}
+    for arch, case in cases.items():
+        cfg = get_smoke_config(arch)
+        got = {}
+        if "layer" in parts:
+            got["layer"] = _tp_layer(case, cfg, prof)
+        if "model" in parts:
+            got["model"] = _tp_model(case, cfg, prof, "session" in parts)
+        if "train" in parts:
+            late = result["coord"] == (1, 0)
+            got["train"] = [_moe_ep_train(case, cfg, prof, d and late)
+                            for d in (False, True)]
+        result[arch] = got
+    with open(f"{out}.{rank}.pkl", "wb") as f:
+        pickle.dump(result, f)
     dist.destroy_process_group()

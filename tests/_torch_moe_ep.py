@@ -210,6 +210,14 @@ def expert_shard(a, name, d, m):
     return a[m * el:(m + 1) * el, d * rows:(d + 1) * rows]
 
 
+def rank_tree(tree, cfg, coord):
+    """A whole parameter tree (or AdamW moment) as the rank at ``coord``
+    holds it: ``lm.local_params`` on the profile's layout."""
+    import _torch_tp
+    from repro_torch.models import lm
+    return lm.local_params(tree, cfg, _torch_tp.profile(coord))
+
+
 def check_routing(ref_rec, port_rec, coord):
     """The rank's routing of each call, expert indices and kept mask,
     identical to the reference's block at the same coordinate."""

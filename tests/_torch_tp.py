@@ -1,0 +1,340 @@
+"""Tensor and sequence parallelism of the port's attention and MLP
+sublayers (``repro_torch.models.blocks.attn_apply`` and ``mlp_apply``
+with a rank's place, ``lm._sublayer``) against the reference's own mesh
+run, shared by ``tests/test_torch_tp*.py``.
+
+The reference runs in one subprocess (:func:`reference_main`) with 8
+host devices on a (2, 4) ("data", "model") mesh of ``Auto`` axes (jax
+0.9's ``make_mesh`` makes ``Explicit`` ones by default); the port runs on
+8 gloo ranks on a (2, 4) ``DeviceMesh`` beside it
+(``_torch_dist.tp_worker``), each rank on its own weight and cache
+shards.  Both compute in float32 (``C`` set in both packages' model
+modules) from the reference's initial weights and inputs drawn with
+numpy from fixed seeds.  The architectures: stablelm-smoke (grouped K/V
+heads that do not split over 4 ranks: the decode cache is cut by rows),
+qwen-smoke (4 K/V heads, QKV biases: cut by heads) and gemma3-smoke
+(the banded local ring, cut by rows).
+"""
+
+import os
+import pathlib
+import pickle
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import _torch_dist
+import _torch_train
+
+from repro.configs import get_smoke_config as ref_smoke_config
+from repro.models import lm as ref_lm
+from repro.runtime.shardings import SMOKE
+from repro.train.train_step import init_state as ref_init_state
+from repro_torch import convert
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import lm
+from repro_torch.runtime.shardings import Profile
+from repro_torch.tree import leaves
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+DATA, MODEL = 2, 4
+WORLD = DATA * MODEL
+ARCHS = ("stablelm-12b", "qwen15-32b", "gemma3-27b")
+# the layer kinds a mesh computes whole, beside TP attention and MLP
+KIND_ARCHS = ("mamba2-370m", "recurrentgemma-9b", "whisper-medium",
+              "internvl2-26b")
+B, S = 4, 32                # the inputs' batch and sequence
+MAX_SEQ = 48                # the decode cache's rows
+LR = 1e-3
+LAYER_REL = 1e-5            # relative L2 of the layer's output
+F32_REL = 1e-4              # gradients, logits, caches, new parameters
+F32_LOSS = 1e-5
+
+
+def case_inputs(arch, parts) -> dict:
+    """The reference's initial weights (PRNGKey(1)) and the inputs of
+    ``parts``, as numpy, drawn from seeds fixed by the case."""
+    cfg = ref_smoke_config(arch)
+    rng = np.random.default_rng([(ARCHS + KIND_ARCHS).index(arch), 7])
+    params = jax.tree.map(np.asarray,
+                          ref_lm.init_params(jax.random.PRNGKey(1), cfg))
+    tokens = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    case = {"params": params, "lr": LR, "extra": {}}
+    if cfg.encoder_layers:
+        case["extra"]["frames"] = rng.standard_normal(
+            (B, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    if cfg.n_patches:
+        case["extra"]["patches"] = rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if "layer" in parts:
+        case["x"], case["ct"] = rng.standard_normal(
+            (2, B, S, cfg.d_model)).astype(np.float32)
+    if "model" in parts:
+        cache = ref_lm.init_cache(cfg, B, MAX_SEQ, SMOKE)
+        case.update(tokens=tokens, cache=jax.tree.map(
+            lambda a: rng.standard_normal(a.shape).astype(np.float32),
+            cache), dec_tokens=tokens[:, :1],
+            pos=rng.integers(0, MAX_SEQ, (B,)).astype(np.int32))
+    if "train" in parts:
+        s = ref_init_state(params, "adamw")
+        case["state"] = {k: jax.tree.map(np.asarray, getattr(s, k))
+                         for k in ("params", "opt", "gv", "step")}
+        case["batch"] = {"tokens": tokens,
+                         "labels": np.roll(tokens, -1, axis=1),
+                         **case["extra"]}
+    return case
+
+
+def reference_main(inputs, out):
+    """The reference's calls on the (2, 4) mesh for every case of the
+    pickled ``inputs``."""
+    from jax.sharding import AxisType
+
+    from repro.models import blocks, moe, rglru, ssm
+    from repro.runtime.shardings import Profile
+    from repro.train import make_train_step
+    from repro.train.train_step import TrainState
+    for m in (blocks, ref_lm, ssm, rglru, moe):
+        m.C = jnp.float32
+    mesh = jax.make_mesh((DATA, MODEL), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    prof = Profile(mesh=mesh)
+    # results come back replicated: jax 0.9 cannot name some of the
+    # shardings GSPMD infers for the outputs on this mesh
+    whole = jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec())
+    jit = lambda fn: jax.jit(fn, out_shardings=whole)
+    with open(inputs, "rb") as f:
+        cases = pickle.load(f)
+    result = {}
+    with jax.set_mesh(mesh):
+        for arch, case in cases.items():
+            cfg = ref_smoke_config(arch)
+            params = jax.tree.map(jnp.asarray, case["params"])
+            got = result[arch] = {}
+            if "x" in case:
+                kind = cfg.pattern[0]
+                p = jax.tree.map(lambda a: a[0], params["layers"]["0"])
+                x, ct = jnp.asarray(case["x"]), jnp.asarray(case["ct"])
+                pos = jnp.broadcast_to(jnp.arange(S)[None], (B, S))
+
+                def layer(p, x):
+                    return ref_lm._sublayer(p, kind, x, cfg, prof,
+                                            positions=pos)[0]
+                y = jit(layer)(p, x)
+                gp, gx = jit(jax.grad(
+                    lambda p, x: (layer(p, x) * ct).sum(),
+                    argnums=(0, 1)))(p, x)
+                got["layer"] = dict(y=np.asarray(y), gx=np.asarray(gx),
+                                    gp=jax.tree.map(np.asarray, gp))
+            if "tokens" in case:
+                tokens = jnp.asarray(case["tokens"])
+                extra = {k: jnp.asarray(v) for k, v in case["extra"].items()}
+
+                def kw(p, extra):       # an encoder's output, a prefix
+                    out = {}
+                    if "frames" in extra:
+                        out["enc"] = ref_lm.encode(p, extra["frames"], cfg,
+                                                   prof, unroll=True)
+                    if "patches" in extra:
+                        out["prefix_embeds"] = extra["patches"]
+                    return out
+                logits = jit(lambda p, t, e: ref_lm.forward(
+                    p, t, cfg, prof, unroll=True, **kw(p, e)))(
+                        params, tokens, extra)
+                last, cache = jit(lambda p, t, e: ref_lm.prefill(
+                    p, t, cfg, prof, max_seq=MAX_SEQ, unroll=True,
+                    **kw(p, e)))(params, tokens, extra)
+                dec, _ = jit(lambda p, c, t, po: ref_lm.decode_step(
+                    p, c, t, po, cfg, prof, unroll=True))(
+                    params, jax.tree.map(jnp.asarray, case["cache"]),
+                    jnp.asarray(case["dec_tokens"]), jnp.asarray(case["pos"]))
+                got["model"] = dict(logits=np.asarray(logits),
+                                    prefill=np.asarray(last),
+                                    cache=jax.tree.map(np.asarray, cache),
+                                    decode=np.asarray(dec))
+            if "state" in case:
+                state = TrainState(**{k: jax.tree.map(jnp.asarray, v)
+                                      for k, v in case["state"].items()})
+                step = jit(make_train_step(
+                    cfg, prof, optimizer="adamw", mode="pot",
+                    n_microbatches=2, unroll=True, lr=LR))
+                new, loss = step(state, {k: jnp.asarray(v) for k, v in
+                                         case["batch"].items()})
+                got["train"] = dict(loss=float(loss), state={
+                    k: jax.tree.map(np.asarray, getattr(new, k))
+                    for k in ("params", "opt", "gv", "step")})
+    with open(out, "wb") as f:
+        pickle.dump(result, f)
+
+
+def run_both(tmp_path, parts, archs=ARCHS) -> tuple[dict, list]:
+    """The reference's subprocess and the port's 8 ranks side by side on
+    the same inputs: (the reference's results by arch, each rank's)."""
+    cases = {a: case_inputs(a, parts) for a in archs}
+    inputs, ref_out = tmp_path / "inputs.pkl", tmp_path / "ref.pkl"
+    with open(inputs, "wb") as f:
+        pickle.dump(cases, f)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]),
+        "XLA_FLAGS": f"--xla_force_host_platform_device_count={WORLD}",
+        "JAX_PLATFORMS": "cpu"}
+    ref = subprocess.Popen(
+        [sys.executable, "-c", "import sys, _torch_tp as m; "
+         "m.reference_main(sys.argv[1], sys.argv[2])", str(inputs),
+         str(ref_out)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        _torch_dist.spawn(_torch_dist.tp_worker, WORLD, tmp_path / "rdv",
+                          str(inputs), str(tmp_path / "port"), parts)
+    finally:
+        _, err = ref.communicate(timeout=600)
+    assert ref.returncode == 0, err[-3000:]
+    with open(ref_out, "rb") as f:
+        ref_result = pickle.load(f)
+    ranks = []
+    for r in range(WORLD):
+        with open(tmp_path / f"port.{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    return ref_result, ranks
+
+
+def rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    scale = np.linalg.norm(b)
+    return float(np.linalg.norm(a - b) / (scale if scale else 1.0))
+
+
+def same_bits(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+class CoordMesh:
+    """What ``shardings.local_shard`` reads of the (DATA, MODEL) mesh at
+    one coordinate, to cut a whole tree as that rank holds it in a
+    process without the ranks."""
+
+    mesh_dim_names = ("data", "model")
+    shape = (DATA, MODEL)
+
+    def __init__(self, coord):
+        self.coord = tuple(coord)
+
+    def get_coordinate(self):
+        return list(self.coord)
+
+    def size(self, dim=None):
+        return DATA * MODEL if dim is None else self.shape[dim]
+
+
+def profile(coord):
+    return Profile(mesh=CoordMesh(coord))
+
+
+# ------------------------------------------------ the train step's checks
+def expected(ref_state, cfg, coord) -> list:
+    """The reference's new state as rank ``coord``'s leaves: the port's
+    tree order, the attention and MLP leaves cut to the rank's shards
+    (``lm.local_params``)."""
+    exp = convert.train_state_from_numpy(ref_state, cfg, device="cpu")
+    prof = profile(coord)
+    trees = [lm.local_params(t, cfg, prof)
+             for t in (exp.params, exp.opt["m"], exp.opt["v"])]
+    return [t.numpy() for t in leaves(
+        [trees[0], dict(exp.opt, m=trees[1], v=trees[2])])]
+
+
+def check_pot_step(runs, arch):
+    """The rank's new state against the reference's, and its delayed run
+    bitwise the same (module docstrings of the train files)."""
+    ref_result, ranks = runs
+    exp = ref_result[arch]["train"]
+    cfg = get_smoke_config(arch)
+    whole = convert.train_state_from_numpy(exp["state"], cfg, device="cpu")
+    n = len(leaves(whole.params))
+    for got in ranks:
+        run, delayed = got[arch]["train"]
+        want = expected(exp["state"], cfg, got["coord"])
+        assert run["counters"] == [1, 1]
+        np.testing.assert_allclose(run["loss"], exp["loss"],
+                                   rtol=F32_LOSS)
+        assert [a.shape for a in run["leaves"]] == [b.shape for b in want]
+        skip = _torch_train.undetermined(run["leaves"][n:2 * n],
+                                         want[n:2 * n])
+        assert len(skip) <= cfg.n_layers, skip
+        bad = {j: rel(a, b) for j, (a, b) in enumerate(
+            zip(run["leaves"], want)) if j not in skip
+            and rel(a, b) > F32_REL}
+        assert not bad, bad
+        assert same_bits(run["loss"], delayed["loss"])
+        assert all(same_bits(a, b) for a, b in zip(
+            run["leaves"], delayed["leaves"], strict=True))
+
+
+def check_same_on_every_rank(runs, arch):
+    """The leaves every rank holds whole, and the loss, bitwise the same
+    on every rank."""
+    ref_result, ranks = runs
+    cfg = get_smoke_config(arch)
+    exp = ref_result[arch]["train"]["state"]
+    whole = convert.train_state_from_numpy(exp, cfg, device="cpu")
+    shapes = [tuple(t.shape) for t in leaves([whole.params, whole.opt])]
+    first = ranks[0][arch]["train"][0]
+    for got in ranks[1:]:
+        run = got[arch]["train"][0]
+        assert same_bits(run["loss"], first["loss"])
+        for a, b, shape in zip(run["leaves"], first["leaves"], shapes,
+                               strict=True):
+            if a.shape == shape:        # a shard is the rank's own
+                assert same_bits(a, b)
+
+
+# ------------------------------------------------ the model's checks
+def check_forward_and_prefill(runs, arch):
+    """``lm.forward``, ``lm.prefill`` and the rank's cache shard against
+    the reference's mesh run, the same on every rank."""
+    ref_result, ranks = runs
+    exp = ref_result[arch]["model"]
+    cfg = get_smoke_config(arch)
+    whole = convert.lm_cache_from_numpy(exp["cache"], cfg, "cpu",
+                                        torch.float32)
+    for got in ranks:
+        model = got[arch]["model"]
+        assert rel(model["logits"], exp["logits"]) <= F32_REL
+        assert rel(model["prefill"], exp["prefill"]) <= F32_REL
+        want = lm.local_cache(whole, cfg, profile(got["coord"]))
+        assert len(model["cache"]) == len(want)
+        for mine, cut in zip(model["cache"], want):
+            assert set(mine) == set(cut)
+            for name, t in cut.items():
+                assert mine[name].shape == tuple(t.shape), name
+                assert rel(mine[name], t.numpy()) <= F32_REL, name
+        for key in ("logits", "prefill"):
+            assert same_bits(model[key], ranks[0][arch]["model"][key])
+
+
+def check_decode_step(runs, arch):
+    """One ``decode_step`` against the reference's, the same on every
+    rank."""
+    ref_result, ranks = runs
+    exp = ref_result[arch]["model"]
+    for got in ranks:
+        model = got[arch]["model"]
+        assert rel(model["decode"], exp["decode"]) <= F32_REL
+        assert same_bits(model["decode"], ranks[0][arch]["model"]["decode"])
+
+
+def check_session(runs, arch):
+    """A ``Session``'s tokens and fingerprint the same on every rank."""
+    _, ranks = runs
+    first = ranks[0][arch]["model"]
+    assert first["session"].shape == (B, 5)
+    for got in ranks[1:]:
+        model = got[arch]["model"]
+        assert same_bits(model["session"], first["session"])
+        assert model["fingerprint"] == first["fingerprint"]

@@ -8,7 +8,9 @@ validation strip on both routes and a pipelined PCC stream against the
 CPU's, the sharded store's kernels at W_s = 4,096 (their OR over shards
 against the dense kernels), sharded sessions and a replica's failover on
 the card, the serving
-session on the card against the CPU's, a Pot train step on the card
+session on the card against the CPU's, the AdamW kernel at tensor-
+parallel shards' shapes and the paged commit into a K/V cache's head
+shard, a Pot train step on the card
 run twice, bitwise, and the DP step of the other layer kinds (the AdamW
 kernel at their leaves) twice, bitwise.
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
@@ -469,6 +471,32 @@ def test_kv_commit_kernel_equals_plain(cuda, p, page, h, s, dtype):
     assert torch.equal(versions, exp_v)
 
 
+@pytest.mark.parametrize("p,page,h,s", [
+    # a KV cache's head shard as a row of the commit: stablelm-12b's 8
+    # K/V heads of 160 over 8 ranks (one head) and over 2 (four),
+    # qwen1.5-32b's 40 of 128 over 8 (five); 8 decode slots, and a
+    # ragged step of 3
+    (64, 16, 160, 8), (64, 16, 640, 8), (128, 16, 640, 3),
+    # a head shard whose width is not a multiple of 4
+    (32, 16, 3 * 50 + 1, 5),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kv_commit_kernel_on_a_head_sharded_cache(cuda, p, page, h, s,
+                                                  dtype):
+    """The ordered paged commit into a rank's head shard of a decode
+    cache, in place, against its plain version."""
+    rng = np.random.default_rng(p * h + s)
+    args = _kv_inputs(rng, p, page, h, s, dtype, cuda)
+    exp_c, exp_v = ref.kv_commit_ref(*args)
+    kv_commit.reset_launches()
+    cache, versions = kv_commit.kv_commit_(*args)
+    torch.cuda.synchronize()
+    assert kv_commit.LAUNCHES["kv_commit"] == 1
+    assert cache is args[0] and versions is args[1]
+    assert torch.equal(cache.view(torch.uint8), exp_c.view(torch.uint8))
+    assert torch.equal(versions, exp_v)
+
+
 def _commit_equals_plain(args):
     got_c, got_v = kv_commit.kv_commit(*args)
     exp_c, exp_v = ref.kv_commit_ref(*args)
@@ -615,6 +643,32 @@ def test_adamw_kernel_equals_plain(cuda, shape, gdtype):
         n, gdtype, cuda, n % 1000))
     hp = fused_adamw.hp_vector(7, lr=3e-4, b1=0.9, b2=0.999, eps=1e-8,
                                wd=0.1, device=cuda)
+    fused_adamw.reset_launches()
+    got = fused_adamw.fused_adamw(p, m, v, g, hp)
+    torch.cuda.synchronize()
+    assert fused_adamw.LAUNCHES["fused_adamw"] == 1
+    assert _bits_equal(got, ref.adamw_ref(p, m, v, g, hp))
+
+
+@pytest.mark.parametrize("shape", [
+    # stablelm-12b's tensor-parallel shards: w1/w3 (5120, 13824 / m) at
+    # m = 8 whole and with FSDP over 2 data ranks, wq (5120, 640), wo
+    # (640, 5120) at m = 8; w1 at m = 2
+    (5120, 1728), (2560, 1728), (5120, 640), (640, 5120), (5120, 6912),
+    # qwen1.5-32b's at m = 8: w1 (5120, 27392 / 8), its QKV bias shard
+    (5120, 3424), (640,),
+    # shards whose sizes are not a multiple of 4 (the scalar tail)
+    (5120, 1727), (3, 1707), (13,),
+])
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+def test_adamw_kernel_at_tensor_parallel_shards(cuda, shape, gdtype):
+    """The fused AdamW kernel at the leaves a rank holds under tensor
+    parallelism (``lm.local_params``), against its plain version."""
+    n = int(np.prod(shape))
+    p, m, v, g = (t.reshape(shape) for t in _adamw_inputs(
+        n, gdtype, cuda, n % 997))
+    hp = fused_adamw.hp_vector(2, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                               wd=0.01, device=cuda)
     fused_adamw.reset_launches()
     got = fused_adamw.fused_adamw(p, m, v, g, hp)
     torch.cuda.synchronize()

@@ -32,17 +32,20 @@ def runs(tmp_path_factory):
 
 def expected(ref_state, cfg, coord) -> list:
     """The reference's new state as rank ``coord``'s leaves: the port's
-    tree order, the expert leaves cut to the rank's shards."""
+    tree order, the expert, attention and MLP leaves cut to the rank's
+    shards (``lm.local_params``)."""
     exp = convert.train_state_from_numpy(ref_state, cfg, device="cpu")
-    trees = [exp.params, exp.opt["m"], exp.opt["v"]]
-    for tree in trees:
-        for layer in tree["layers"]:
-            for name in ep.EXPERTS:
-                layer["moe"][name] = torch.from_numpy(np.ascontiguousarray(
-                    ep.expert_shard(layer["moe"][name].numpy(), name,
-                                    *coord)))
+    trees = [ep.rank_tree(t, cfg, coord)
+             for t in (exp.params, exp.opt["m"], exp.opt["v"])]
     return [t.numpy() for t in leaves(
-        [exp.params, dict(exp.opt, m=trees[1], v=trees[2])])]
+        [trees[0], dict(exp.opt, m=trees[1], v=trees[2])])]
+
+
+def whole_leaves(ref_state, cfg) -> list:
+    """Which of a state's leaves every rank holds whole."""
+    exp = convert.train_state_from_numpy(ref_state, cfg, device="cpu")
+    return [a.shape == b.shape for a, b in zip(
+        leaves([exp.params, exp.opt]), expected(ref_state, cfg, (0, 0)))]
 
 
 @pytest.mark.parametrize("cf", ep.CFS)
@@ -76,12 +79,14 @@ def test_pot_step_matches_reference_schedule(runs, cf):
 
 @pytest.mark.parametrize("cf", ep.CFS)
 def test_pot_step_is_the_same_on_every_rank(runs, cf):
-    _, ranks = runs
+    ref_result, ranks = runs
     first = ranks[0][(ARCH, cf)]["train"][0]
+    whole = whole_leaves(ref_result[(ARCH, cf)]["train"]["state"],
+                         get_smoke_config(ARCH))
     for got in ranks[1:]:
         run = got[(ARCH, cf)]["train"][0]
         assert ep.same_bits(run["loss"], first["loss"])
-        for a, b in zip(run["leaves"], first["leaves"], strict=True):
-            if a.shape == b.shape and a.ndim == 3:
-                continue    # an expert shard: the rank's own
-            assert ep.same_bits(a, b)
+        for a, b, w in zip(run["leaves"], first["leaves"], whole,
+                           strict=True):
+            if w:           # a shard is the rank's own
+                assert ep.same_bits(a, b)

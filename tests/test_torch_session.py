@@ -202,10 +202,11 @@ def test_pcc_execute_matches_reference(kw, formulation, pcc_reference):
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(shards=2),
                                 dict(elastic=object())])
 def test_unported_session_arguments_raise(kw):
-    """Only ``mesh`` (one shard per device) is left unported: it raises,
-    naming its ROADMAP item; ``shards`` and ``elastic`` are ported."""
+    """Every session argument is ported: ``shards`` and ``elastic``
+    build their sessions, and ``mesh`` (one shard per rank) refuses what
+    is not a 1-D mesh of ``shards`` ranks, as the reference does."""
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(ValueError, match="exactly one axis"):
             PotSession(16, device="cpu", **kw)
         return
     s = PotSession(16, device="cpu", **kw)
@@ -221,7 +222,7 @@ def test_unknown_engine_raises():
 
 def test_unported_session_methods_raise(tmp_path):
     """``serve(elastic=)``, ``snapshot`` and ``restore`` are ported; a
-    restore onto one shard per device (``mesh``) still raises."""
+    restore onto a ``mesh`` that is not one of ``shards`` ranks raises."""
     from repro_torch.runtime.elastic import ElasticLaneManager
     s = PotSession(16, device="cpu")
     mgr = ElasticLaneManager(1)
@@ -231,6 +232,6 @@ def test_unported_session_methods_raise(tmp_path):
     assert path.endswith("snap_00000000") and pool is not None
     assert restored.fingerprint() == s.fingerprint()
     assert restored.restored_from == 0 and s.snapshots_taken == 1
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="exactly one axis"):
         PotSession.restore(str(tmp_path), mesh=object(), shards=2,
                            device="cpu")

@@ -226,9 +226,11 @@ def test_store_and_shards_together_raise_and_mesh_is_not_ported():
     store = make_store(16, device="cpu")
     with pytest.raises(ValueError, match="not both"):
         PotSession(store=shard_store(store, 2), shards=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # a mesh is one shard per rank (tests/test_torch_store_mesh.py); one
+    # that is not a 1-D mesh of ``shards`` ranks is refused
+    with pytest.raises(ValueError, match="exactly one axis"):
         PotSession(16, shards=2, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="exactly one axis"):
         make_store(16, shards=2, mesh=object(), device="cpu")
     s = PotSession(store=shard_store(store, 2), device="cpu")
     assert s.store.layout == StoreLayout(16, 2)

@@ -1,0 +1,49 @@
+"""The layer kinds that a mesh computes whole on every rank, beside
+tensor- and sequence-parallel attention and MLP, on 8 gloo ranks of a
+(2, 4) mesh against the reference's own (2, 4) mesh run on 8 host
+devices (``tests/_torch_tp.py``), in float32: whisper-smoke (the
+encoder, whole on every rank, and cross-attention, its input gathered
+whole and its K/V rows a batch block).
+``lm.forward``'s logits, ``lm.prefill``'s last logits and each rank's
+cache shard (the reference's cache cut by ``lm.local_cache``), one
+``decode_step`` from a random cache cut to the rank's shard, and one pot
+step (AdamW, 2 microbatches): logits, caches and new leaves within 1e-4
+in relative L2, the loss within rtol 1e-5, bitwise the same with a rank
+joining each backward 0.2 s late, and the leaves every rank holds whole
+bitwise the same on every rank.  The other kinds are in
+``tests/test_torch_tp_kinds.py``."""
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import _torch_tp as tp
+
+ARCHS = ("whisper-medium",)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return tp.run_both(tmp_path_factory.mktemp("tp_kinds_whisper"),
+                       ("model", "train"), archs=ARCHS)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_and_prefill_match_reference_mesh_run(runs, arch):
+    tp.check_forward_and_prefill(runs, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_step_matches_reference_mesh_run(runs, arch):
+    tp.check_decode_step(runs, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_pot_step_matches_reference_mesh_run(runs, arch):
+    tp.check_pot_step(runs, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_pot_step_is_the_same_on_every_rank(runs, arch):
+    tp.check_same_on_every_rank(runs, arch)
