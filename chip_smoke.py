@@ -234,7 +234,8 @@ Phases, each printing its own lines:
    frames).  Each: 3 steps twice from one seed, losses and every state
    leaf bitwise equal, losses finite, the fused AdamW kernel launched
    once per leaf per step (none under Adafactor); ms per step, tokens/s
-   and peak memory.  Then one Adafactor step of recurrentgemma (its
+   and peak memory.  17b (run beside 10 and 10b): one Adafactor step
+   of recurrentgemma (its
    phase cut) and of deepseek (2 layers: the (2, 64, 2,048, 1,408)
    expert stacks hold 3.7e8 elements, so they are clipped group by
    group) in float32 (``C`` set to float32 in the port's model
@@ -244,7 +245,10 @@ Phases, each printing its own lines:
    CPU tests' bound (the parameters of a leaf with a gradient column
    the two give more than 1e-3 apart, a cancellation both optimizers
    normalise to an O(1) update, are held through their gradients and
-   statistics; ``tests/test_torch_train_kinds.py``);
+   statistics; ``tests/test_torch_train_kinds.py``); the card's steps
+   run just before phase 10, the CPU's in a thread beside phases 10
+   and 10b (which are host-bound on one core and read nothing of the
+   model modules, whose ``C`` the thread sets), compared after 10b;
 18. (run after 17) the layout and the dry run, about 10 s: a. a
    world-1 NCCL group, ``launch.mesh.make_host_mesh()`` over the card,
    and every leaf of deepseek-moe-16b cut to 2 layers (phase 17's cell,
@@ -290,12 +294,23 @@ Phases, each printing its own lines:
    b. tensor and sequence parallelism of the attention and MLP
    sublayers: stablelm-12b at full width cut to 2 layers on phase 18a's
    (1, 1) mesh with ``Profile(mesh=)`` against ``SMOKE``: ``forward``'s
-   logits and ``prefill``'s logits and cache on 8 x 128 bf16 tokens, a
+   logits, ``prefill``'s logits and cache on 8 x 128 bf16 tokens and
+   one ``decode_step``'s from that cache, a
    ``Session`` (8 slots, 64-token prompts, 16 steps: tokens and
    fingerprint, kv_commit launched once a step) and one pot step (AdamW,
    2 microbatches, float32 masters: loss and every parameter and moment
    leaf, fused_adamw launched once a leaf), bitwise equal; the medians
    of 5 after a warm-up of each, with and without the profile;
+   c. tensor parallelism of the other kinds, on the same mesh and with
+   the same checks, times and launches as b: mamba2-370m cut to 2
+   layers (the SSD mixer's heads), recurrentgemma-9b cut to one pattern
+   group (the RG-LRU mixers' width, the local ring) and whisper-medium
+   cut to 2 encoder and 2 decoder layers (the encoder on the rank's
+   block of its 1,504 stub frames, cross-attention's heads; ``forward``,
+   ``prefill`` and the decode step after ``lm.encode`` on the same
+   profile: the decode step reads the cross rows the prefill wrote,
+   where the ``Session``, which prefills without ``enc``, reads zero
+   rows);
 10b. (run last) each engine pipelined: ``run_stream`` at
    ``pipeline_depth=2`` over the first 256 rows of the stream's first
    three batches on the card, equal to the same engine's serial run on the card
@@ -308,7 +323,8 @@ The CPU runs that phases 4, 10 and 10b hold the card to are made from
 the seeds alone by the CPU referee, a child process started first that
 never sees the card (REFEREE_THREADS torch threads, on cores the
 host-bound card phases leave idle); phase 9's launcher is a process
-started beside phase 12.  The third line from the end gives each
+started beside phase 12; phase 17b's CPU steps are a thread beside
+phases 10 and 10b.  The third line from the end gives each
 phase's wall seconds, the second the kernels' JSON summary and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device it exits 1 at once and prints no result.
@@ -395,6 +411,9 @@ TRAIN_FAMILIES = (
 )
 FAMILY_TRAIN_STEPS = 3
 FAMILY_HELD_SEQ = 64    # phase 17's Adafactor step on the card and the CPU
+# phase 17b: phase 17's Adafactor cells held card against CPU, (arch,
+# layers kept): recurrentgemma's phase cut, deepseek's 2 layers
+ADAFACTOR_HELD = (("recurrentgemma-9b", 5), ("deepseek-moe-16b", 2))
 # phase 18: the dry run held to the card, (arch, layers kept, rows,
 # tokens a row): phase 17's deepseek cell and phase 8's stablelm cell
 DRYRUN_CELLS = (("deepseek-moe-16b", 2, 8, 512), ("stablelm-12b", 4, 8, 128))
@@ -406,6 +425,10 @@ EP_TIMED = 5            # medians of 5 after one warm-up
 # phase 19b: tensor and sequence parallelism at world 1, stablelm-12b at
 # full width cut to 2 layers; its session and prompt as phase 18c's
 TP_ARCH, TP_LAYERS, TP_ROWS, TP_SEQ = "stablelm-12b", 2, 8, 128
+# phase 19c: the other kinds at full width, (arch, layers kept, encoder
+# layers kept); the inputs, session and step as phase 19b's
+TP_KINDS = (("mamba2-370m", 2, 0), ("recurrentgemma-9b", 3, 0),
+            ("whisper-medium", 2, 2))
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 x
@@ -3174,15 +3197,37 @@ def family_train_runs(cfg, optimizer, seq, rows):
     return launches
 
 
-def family_adafactor_held(cfg):
-    """Phase 17: one Adafactor pot step (its gradients, then the update)
-    in float32 on the card and on the CPU from the same weights, held to
-    the CPU tests' bound."""
+def adafactor_step(cfg, params, arrays, device):
+    """One Adafactor pot step (its gradients, then the update) of
+    ``params`` on ``device`` over FAMILY_HELD_SEQ-token ``arrays``, with
+    ``C`` float32 (the caller sets it): (loss, gradient, new parameter
+    and statistics leaves, seconds)."""
     import torch
     from functools import partial
-    from repro_torch.models import lm
-    from repro_torch.optim import adafactor, adafactor_update
+    from repro_torch.optim import adafactor_update
     from repro_torch.train import init_state, loss_fn, train_step
+    from repro_torch.tree import leaves
+
+    batch = {k: torch.from_numpy(v.astype(np.int32)).to(device)
+             for k, v in arrays.items()}
+    t0 = time.perf_counter()
+    value, grads = train_step._accumulate(
+        partial(loss_fn, cfg=cfg, remat=False), params, batch, 2)
+    state = init_state(params, "adafactor", cfg=cfg)
+    new, opt = adafactor_update(params, grads, state.opt, lr=TRAIN_LR)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return (float(value), leaves(grads), leaves(new), leaves(opt["stats"]),
+            time.perf_counter() - t0)
+
+
+def adafactor_held_card(cfg) -> dict:
+    """Phase 17b's card half for ``cfg``: one Adafactor step in float32
+    from SEED + 4's weights, its results kept on the card; the weights'
+    host copy and the batch for the CPU half."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.optim import adafactor
     from repro_torch.tree import leaves, tree_map
 
     params = lm.init_params(
@@ -3192,30 +3237,34 @@ def family_adafactor_held(cfg):
     by_group = sum(adafactor._grouped((cfg.n_groups,) + tuple(t.shape))
                    for layer in params["layers"][:len(cfg.pattern)]
                    for t in leaves(layer))
+    assert by_group == (3 if cfg.n_experts else 0), by_group
     host = tree_map(lambda t: t.cpu(), params)
     rng = np.random.default_rng(SEED + 4)
     tokens = rng.integers(0, cfg.vocab, (2, FAMILY_HELD_SEQ + 1))
     arrays = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
-    loss = partial(loss_fn, cfg=cfg, remat=False)
-    sources = {"cuda": params, "cpu": host}
-    del params, host
-    out = {}
     with port_compute_dtype(torch.float32):
-        for device in ("cuda", "cpu"):
-            p = sources.pop(device)
-            batch = {k: torch.from_numpy(v.astype(np.int32)).to(device)
-                     for k, v in arrays.items()}
-            t0 = time.perf_counter()
-            value, grads = train_step._accumulate(loss, p, batch, 2)
-            state = init_state(p, "adafactor", cfg=cfg)
-            new, opt = adafactor_update(p, grads, state.opt, lr=TRAIN_LR)
-            if device == "cuda":
-                torch.cuda.synchronize()
-            # the card's results stay on the card while the CPU runs
-            out[device] = (float(value), leaves(grads), leaves(new),
-                           leaves(opt["stats"]), time.perf_counter() - t0)
-            del p, grads, new, opt, state
-    (lc, gc, pc, sc, tc), (lh, gh, ph, sh, th) = out["cuda"], out["cpu"]
+        card = adafactor_step(cfg, params, arrays, "cuda")
+    return dict(cfg=cfg, by_group=by_group, host=host, arrays=arrays,
+                cuda=card)
+
+
+def adafactor_held_cpu(runs):
+    """Phase 17b's CPU half: each run's step on the CPU from the same
+    weights (``C`` float32 meanwhile: the phases it runs beside do not
+    read it)."""
+    import torch
+    with port_compute_dtype(torch.float32):
+        for run in runs:
+            run["cpu"] = adafactor_step(run["cfg"], run.pop("host"),
+                                        run["arrays"], "cpu")
+
+
+def adafactor_held_compare(run):
+    """Phase 17b's check of one run: the loss within rtol 1e-5, the
+    gradients, statistics and new parameters within 1e-4 in relative L2
+    per leaf."""
+    import torch
+    (lc, gc, pc, sc, tc), (lh, gh, ph, sh, th) = run["cuda"], run["cpu"]
     np.testing.assert_allclose(lc, lh, rtol=1e-5)
     t0 = time.perf_counter()
     dist_g = [leaf_distance(a, b) for a, b in zip(gc, gh)]
@@ -3228,18 +3277,53 @@ def family_adafactor_held(cfg):
     t_cmp = time.perf_counter() - t0
     assert max(worst_g, worst_p, worst_s) <= 1e-4, (worst_g, worst_p,
                                                     worst_s)
-    log(f"  one Adafactor step in float32, card against CPU (2 x "
-        f"{FAMILY_HELD_SEQ} tokens; card {tc:.1f} s, CPU {th:.1f} s, the "
-        f"comparison {t_cmp:.1f} s): loss {lc:.7f} vs {lh:.7f} (|diff| "
+    log(f"  {run['cfg'].name} ({run['cfg'].n_layers} layers): one "
+        f"Adafactor step in float32, card against CPU (2 x "
+        f"{FAMILY_HELD_SEQ} tokens; card {tc:.1f} s, CPU {th:.1f} s beside "
+        f"phases 10 and 10b, the comparison {t_cmp:.1f} s): loss "
+        f"{lc:.7f} vs {lh:.7f} (|diff| "
         f"{abs(lc - lh):.3e}); relative L2 at most: gradients "
         f"{worst_g:.3e}, statistics {worst_s:.3e}, parameters "
         f"{worst_p:.3e} (<= 1e-4) outside the {len(skip)} of {len(pc)} "
         f"leaves with a gradient column the two give more than 1e-3 "
         f"apart ({worst_skip:.3e} there, held through their gradients); "
-        f"{by_group} stacked leaves clipped group by group")
-    del out, gc, pc, sc, gh, ph, sh
+        f"{run['by_group']} stacked leaves clipped group by group")
+    del run["cuda"], run["cpu"], gc, pc, sc, gh, ph, sh
     torch.cuda.empty_cache()
-    return by_group
+
+
+def phase_adafactor_card():
+    """Phase 17b's card half for ADAFACTOR_HELD's configurations; then
+    their CPU half started in a thread, which runs beside phases 10 and
+    10b (host-bound on one core, and off the model modules).  Returns
+    (the runs, the thread's future)."""
+    import concurrent.futures
+    import torch
+    from repro_torch.configs import get_config
+
+    runs = [adafactor_held_card(dataclasses.replace(
+        get_config(arch), n_layers=n_layers))
+        for arch, n_layers in ADAFACTOR_HELD]
+    torch.cuda.empty_cache()
+    # two cores left to the card phases' host thread
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 2))
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(adafactor_held_cpu, runs)
+    pool.shutdown(wait=False)
+    return runs, future, threads
+
+
+def phase_adafactor_held(pending):
+    """Phase 17b's end: the CPU half awaited, each run compared."""
+    import torch
+    runs, future, threads = pending
+    future.result()
+    torch.set_num_threads(threads)
+    log("adafactor held to account (phase 17's recurrentgemma and "
+        "deepseek cells; the CPU steps ran beside phases 10 and 10b):")
+    for run in runs:
+        adafactor_held_compare(run)
 
 
 def phase_train_families() -> int:
@@ -3266,9 +3350,6 @@ def phase_train_families() -> int:
             from repro_torch.models import blocks
             assert blocks.uses_banded("local", True, seq, cfg), seq
         launches += family_train_runs(cfg, optimizer, seq, rows)
-        if arch in ("recurrentgemma-9b", "deepseek-moe-16b"):
-            by_group = family_adafactor_held(cfg)
-            assert by_group == (3 if cfg.n_experts else 0), by_group
         torch.cuda.empty_cache()
     return launches
 
@@ -3450,12 +3531,9 @@ def phase_moe_ep(mesh) -> tuple[int, int]:
         f"({TRAIN_MICRO} microbatches, {n_leaves} float32 leaves) loss "
         f"and every parameter and moment leaf bitwise equal, fused_adamw "
         f"launches {adamw_launches} ({time.perf_counter() - t0:.1f} s)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     log(f"  moe expert parallelism ms (median of {EP_TIMED} after one, "
-        f"{smi}): " + "; ".join(f"{k} {v:.3f}" for k, v in times.items()))
+        f"{smi_line()}): " + "; ".join(
+            f"{k} {v:.3f}" for k, v in times.items()))
     return adamw_launches, kv_launches
 
 
@@ -3515,23 +3593,29 @@ def phase_store_mesh(wls, dense) -> dict[str, int]:
     return launches
 
 
-def phase_tp(mesh) -> tuple[int, int]:
-    """Phase 19b: the attention and MLP sublayers tensor- and
-    sequence-parallel at world 1 on phase 18a's mesh, each check bitwise
-    against the dense path.  Returns the fused AdamW and kv_commit
-    kernels' launches of the compared train steps and sessions."""
+def tp_against_dense(cfg, prof) -> dict:
+    """Phases 19b and 19c for ``cfg`` (full width, depth cut): on
+    ``prof``'s mesh against ``SMOKE``, ``lm.forward``'s logits and
+    ``lm.prefill``'s logits and cache on TP_ROWS x TP_SEQ bf16 tokens
+    (after ``lm.encode`` of seeded stub frames on the same profile for an
+    encoder-decoder), one ``lm.decode_step`` from that cache (its logits
+    and cache; cross-attention over the prefill's cross rows), a
+    ``Session`` (EP_SLOTS slots, EP_PROMPT-token
+    prompts, EP_STEPS steps: tokens and fingerprint) and one pot step
+    (AdamW, TRAIN_MICRO microbatches, float32 masters: the loss and every
+    parameter and moment leaf), each bitwise equal, the kernels launched
+    once a step and once a leaf; then the medians of EP_TIMED after a
+    warm-up of each on both.  Returns the times, the fingerprint, the
+    leaves and the kv_commit and fused_adamw launches of the compared
+    sessions and steps."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import fused_adamw, kv_commit
     from repro_torch.models import lm
-    from repro_torch.runtime.shardings import SMOKE, Profile
+    from repro_torch.runtime.shardings import SMOKE
     from repro_torch.serve.session import Session
     from repro_torch.train import init_state, make_train_step
     from repro_torch.tree import leaves
 
-    t0 = time.perf_counter()
-    prof = Profile(mesh=mesh)
-    cfg = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS)
     gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
     bits = lambda t: t.view(torch.int16 if t.element_size() == 2 else
                             torch.int32) if t.is_floating_point() else t
@@ -3548,19 +3632,44 @@ def phase_tp(mesh) -> tuple[int, int]:
                                       strict=True)), "a world-1 shard is cut"
     tokens = torch.randint(0, cfg.vocab, (TP_ROWS, TP_SEQ),
                            generator=gen(SEED + 4), device="cuda")
+    frames = (torch.randn((TP_ROWS, cfg.n_frames, cfg.d_model),
+                          generator=gen(SEED + 5), device="cuda")
+              if cfg.encoder_layers else None)
+
+    def kw(pr):
+        return {} if frames is None else {
+            "enc": lm.encode(params, frames, cfg, pr)}
 
     def forward(pr):
         with torch.no_grad():
-            return lm.forward(params, tokens, cfg, pr)
+            return lm.forward(params, tokens, cfg, pr, **kw(pr))
 
     def prefill(pr):
         with torch.no_grad():
             logits, cache = lm.prefill(params, tokens, cfg, pr,
-                                       max_seq=EP_MAX_SEQ + TP_SEQ)
+                                       max_seq=EP_MAX_SEQ + TP_SEQ,
+                                       **kw(pr))
+        return [logits] + [t for c in cache for t in c.values()]
+
+    def decode(pr):
+        """One decode step from the prefill's cache: its logits and
+        every cache entry (an encoder-decoder's cross rows filled by
+        the prefill from ``lm.encode``)."""
+        with torch.no_grad():
+            _, cache = lm.prefill(params, tokens, cfg, pr,
+                                  max_seq=EP_MAX_SEQ + TP_SEQ, **kw(pr))
+            pos = torch.full((TP_ROWS,), TP_SEQ, dtype=torch.int32,
+                             device="cuda")
+            logits, cache = lm.decode_step(params, cache, tokens[:, :1],
+                                           pos, cfg, pr)
+        if frames is not None:
+            assert all(c["xk"].any() and c["xv"].any() for c in cache
+                       if "xk" in c), "the cross rows are empty"
         return [logits] + [t for c in cache for t in c.values()]
 
     assert same([forward(prof)], [forward(SMOKE)]), "forward differs"
     assert same(prefill(prof), prefill(SMOKE)), "prefill differs"
+    assert same(decode(prof), decode(SMOKE)), "decode step differs"
     for k, pr in profiles.items():
         times[f"forward {k}"] = median_ms(lambda: forward(pr))
         times[f"prefill {k}"] = median_ms(lambda: prefill(pr))
@@ -3584,7 +3693,7 @@ def phase_tp(mesh) -> tuple[int, int]:
     assert kv_launches == 2 * EP_STEPS, kv_launches
     for k, (sess, _, _) in served.items():
         times[f"decode step {k}"] = median_ms(sess.step)
-    del served, sess, params, local
+    del served, sess, params, local, frames
     torch.cuda.empty_cache()
 
     # c. one pot step with float32 masters
@@ -3610,24 +3719,82 @@ def phase_tp(mesh) -> tuple[int, int]:
         times[f"train step {k}"] = median_ms(lambda: step(state, batch))
     del state, steps
     torch.cuda.empty_cache()
+    return dict(times=times, fingerprint=f1, n_leaves=n_leaves,
+                kv_launches=kv_launches, adamw_launches=adamw_launches)
 
-    log(f"tensor and sequence parallelism: world-1 NCCL group, (1, 1) "
-        f"(data, model) mesh; {cfg.name} cut to {cfg.n_layers} layers "
-        f"(widths untouched): forward logits and prefill logits and "
-        f"cache on {TP_ROWS} x {TP_SEQ} bf16 tokens bitwise equal to the "
-        f"dense path; Session ({EP_SLOTS} slots, {EP_PROMPT}-token "
-        f"prompts, {EP_STEPS} steps) tokens and fingerprint {f1:#010x} "
-        f"bitwise equal, kv_commit launches {kv_launches}; pot step "
-        f"({TRAIN_MICRO} microbatches, {n_leaves} float32 leaves) loss "
-        f"and every parameter and moment leaf bitwise equal, fused_adamw "
-        f"launches {adamw_launches} ({time.perf_counter() - t0:.1f} s)")
-    smi = subprocess.run(
+
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def phase_tp(mesh) -> tuple[int, int]:
+    """Phase 19b: the attention and MLP sublayers tensor- and
+    sequence-parallel at world 1 on phase 18a's mesh, each check bitwise
+    against the dense path (:func:`tp_against_dense`).  Returns the
+    fused AdamW and kv_commit kernels' launches of the compared train
+    steps and sessions."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.shardings import Profile
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS)
+    got = tp_against_dense(cfg, Profile(mesh=mesh))
+    log(f"tensor and sequence parallelism: world-1 NCCL group, (1, 1) "
+        f"(data, model) mesh; {cfg.name} cut to {cfg.n_layers} layers "
+        f"(widths untouched): forward logits, prefill logits and "
+        f"cache and a decode step's from that cache on {TP_ROWS} x "
+        f"{TP_SEQ} bf16 tokens bitwise equal to the dense path; Session ({EP_SLOTS} slots, {EP_PROMPT}-token "
+        f"prompts, {EP_STEPS} steps) tokens and fingerprint "
+        f"{got['fingerprint']:#010x} bitwise equal, kv_commit launches "
+        f"{got['kv_launches']}; pot step ({TRAIN_MICRO} microbatches, "
+        f"{got['n_leaves']} float32 leaves) loss and every parameter and "
+        f"moment leaf bitwise equal, fused_adamw launches "
+        f"{got['adamw_launches']} ({time.perf_counter() - t0:.1f} s)")
     log(f"  tensor parallelism ms (median of {EP_TIMED} after one, "
-        f"{smi}): " + "; ".join(f"{k} {v:.3f}" for k, v in times.items()))
-    return adamw_launches, kv_launches
+        f"{smi_line()}): " + "; ".join(
+            f"{k} {v:.3f}" for k, v in got["times"].items()))
+    return got["adamw_launches"], got["kv_launches"]
+
+
+def phase_tp_kinds(mesh) -> tuple[int, int]:
+    """Phase 19c: tensor parallelism of the mamba2 and RG-LRU mixers and
+    of whisper's encoder and cross-attention at world 1 on phase 18a's
+    mesh, one family of TP_KINDS at a time, each check bitwise against
+    the dense path (:func:`tp_against_dense`).  Returns the fused AdamW
+    and kv_commit kernels' launches of the compared train steps and
+    sessions."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.shardings import Profile
+
+    adamw = kv = 0
+    for arch, n_layers, n_enc in TP_KINDS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                                  encoder_layers=n_enc)
+        got = tp_against_dense(cfg, Profile(mesh=mesh))
+        adamw += got["adamw_launches"]
+        kv += got["kv_launches"]
+        enc = (f" and {n_enc} encoder layers over {cfg.n_frames} stub "
+               f"frames" if n_enc else "")
+        log(f"tensor parallelism of {cfg.name} (pattern {cfg.pattern}) cut "
+            f"to {cfg.n_layers} layers{enc}, widths untouched, world-1 "
+            f"NCCL group, (1, 1) (data, model) mesh: forward, prefill and "
+            f"a decode step from its cache on {TP_ROWS} x {TP_SEQ} bf16 "
+            f"tokens bitwise equal to the dense path; Session ({EP_SLOTS} slots, {EP_PROMPT}-token "
+            f"prompts, {EP_STEPS} steps) tokens and fingerprint "
+            f"{got['fingerprint']:#010x} bitwise equal, kv_commit launches "
+            f"{got['kv_launches']}; pot step ({TRAIN_MICRO} microbatches, "
+            f"{got['n_leaves']} float32 leaves) loss and every parameter "
+            f"and moment leaf bitwise equal, fused_adamw launches "
+            f"{got['adamw_launches']} ({time.perf_counter() - t0:.1f} s)")
+        log(f"  {cfg.name} tensor parallelism ms (median of {EP_TIMED} "
+            f"after one, {smi_line()}): " + "; ".join(
+                f"{k} {v:.3f}" for k, v in got["times"].items()))
+    return adamw, kv
 
 
 def phase_dryrun() -> int:
@@ -3722,11 +3889,7 @@ def main() -> int:
         return 1
     import repro_torch  # noqa: F401  (fails here outside a checkout)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    log(smi_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     torch.use_deterministic_algorithms(True)
@@ -3811,14 +3974,18 @@ def run_phases(cpu, t_start) -> int:
         for name, n in phase_store_mesh(main_stream, mesh_dense).items():
             launches[name] += n
         adamw_tp, kv_tp = phase_tp(mesh)
+        adamw_kinds, kv_kinds = phase_tp_kinds(mesh)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    launches["fused_adamw"] += adamw_ep + adamw_tp
-    launches["kv_commit"] += kv_ep + kv_tp
+    launches["fused_adamw"] += adamw_ep + adamw_tp + adamw_kinds
+    launches["kv_commit"] += kv_ep + kv_tp + kv_kinds
     launches["fused_adamw"] += phase_dryrun()
+    # phase 17b's CPU steps run in a thread beside phases 10 and 10b
+    adafactor = phase_adafactor_card()
     phase_engines(stream[0], cpu["cpu_engines"].get())
     phase_engines_pipelined(stream, cpu["cpu_engines_pipelined"].get())
+    phase_adafactor_held(adafactor)
 
     summary = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

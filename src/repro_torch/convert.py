@@ -157,9 +157,8 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     bf16 by default, which is what the reference's ``_cast`` makes of
     every float32 parameter at each use, so no bit changes; float32
     keeps the training path's masters.  Under a ``prof`` with a mesh the
-    tree is this rank's (``lm.local_params``): the attention and MLP
-    weights and the MoE layers' experts cut to the rank's shards, every
-    other leaf whole."""
+    tree is this rank's (``lm.local_params``): every leaf cut to the
+    rank's shard by its spec but ``embed`` and ``head``, whole."""
     def tensor(a):
         return torch.from_numpy(np.array(a, np.float32)).to(
             device=device, dtype=dtype)

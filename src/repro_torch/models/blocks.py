@@ -42,6 +42,9 @@ the rank's decode-cache shard: its K/V heads where they split over the
 model axis (:func:`attn_decode` on them, ``lm._attn_decode``), else
 its block of the cache's rows (:func:`decode_rows_tp`, whose partial
 softmax statistics every rank gathers and combines in rank order).
+Cross-attention (whisper) runs the same way: its queries from the
+rank's block, its K/V from the rank's batch rows of the whole encoder
+output, its decode over the rank's heads or rows of the cross cache.
 """
 
 from __future__ import annotations
@@ -310,12 +313,13 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind="attn", causal=True,
     the K/V rows (B, S_kv, KV, hd) after RoPE and before the grouped
     heads are repeated: the rows prefill caches.
 
-    With the ``place`` of a rank on a mesh (self-attention only; module
-    docstring) x is the rank's normalised block (B_b, S_b, D) and
-    ``positions`` (B_b, S) its batch rows': the rank's query heads over
-    the gathered sequence, its partial output summed into its block;
-    the K/V rows returned are its K/V heads (B_b, S, KV / n_model, hd)
-    where they split, else all of them."""
+    With the ``place`` of a rank on a mesh (module docstring) x is the
+    rank's normalised block (B_b, S_b, D), ``positions`` (B_b, S) its
+    batch rows' and a ``kv_src`` its batch rows of the whole source
+    (B_b, S_kv, D), whose cotangent is the rank's partial sum: the
+    rank's query heads over the gathered sequence, its partial output
+    summed into its block; the K/V rows returned are its K/V heads
+    (B_b, S_kv, KV / n_model, hd) where they split, else all of them."""
     x = place.enter(x)
     p = tp_weights(p, place, x.dtype)
     lc = local_heads(cfg, place)
@@ -513,34 +517,37 @@ def decode_rows_tp(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
     float32) over its rows gathered and combined in rank order, then the
     rank's query heads through its rows of wo: (B_b, 1, D), partial over
     the model axis.  ``kind`` ``"local"`` reads the cache as a block of
-    the window's ring."""
+    the window's ring; ``"cross"`` reads a cross-attention cache: the
+    query alone, no RoPE, no write, every row seen."""
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, knew, vnew = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    if "bq" in p:
-        q, knew, vnew = q + p["bq"], knew + p["bk"], vnew + p["bv"]
-    q, knew, vnew = (gather(t, place.model, -1) for t in (q, knew, vnew))
-    q = q.reshape(b, 1, kv, h // kv, hd)
-    knew = knew.reshape(b, 1, kv, hd)
-    sin, cos = rope_tables(pos[:, None], hd, cfg.rope_theta)
-    q, knew = apply_rope(q, sin, cos), apply_rope(knew, sin, cos)
-    vnew = vnew.reshape(b, 1, kv, hd)
     rows = cache_k.shape[1]
-    first = place.m * rows                 # the rank's first cache row
-    if kind == "local":
-        ring = rows * place.n_model        # the whole ring's length
-        slot = pos % ring - first
-        held = torch.arange(rows, device=x.device)[None] + first
-        held = pos[:, None] - ((pos[:, None] - held) % cfg.window)
-        mask = ((held >= 0) & (held <= pos[:, None])
-                & (held > pos[:, None] - cfg.window))
+    q = x @ p["wq"] + p["bq"] if "bq" in p else x @ p["wq"]
+    q = gather(q, place.model, -1).reshape(b, 1, kv, h // kv, hd)
+    if kind == "cross":
+        mask = torch.ones((b, rows), dtype=torch.bool, device=x.device)
     else:
-        slot = pos - first
+        knew, vnew = x @ p["wk"], x @ p["wv"]
+        if "bk" in p:
+            knew, vnew = knew + p["bk"], vnew + p["bv"]
+        knew, vnew = (gather(t, place.model, -1) for t in (knew, vnew))
+        knew = knew.reshape(b, 1, kv, hd)
+        sin, cos = rope_tables(pos[:, None], hd, cfg.rope_theta)
+        q, knew = apply_rope(q, sin, cos), apply_rope(knew, sin, cos)
+        vnew = vnew.reshape(b, 1, kv, hd)
+        first = place.m * rows             # the rank's first cache row
         held = torch.arange(rows, device=x.device)[None] + first
-        mask = held <= pos[:, None]
-    mine = (slot >= 0) & (slot < rows)
-    write_rows(cache_k, knew[:, 0], torch.where(mine, slot, rows))
-    write_rows(cache_v, vnew[:, 0], torch.where(mine, slot, rows))
+        if kind == "local":
+            slot = pos % (rows * place.n_model) - first   # the whole ring
+            held = pos[:, None] - ((pos[:, None] - held) % cfg.window)
+            mask = ((held >= 0) & (held <= pos[:, None])
+                    & (held > pos[:, None] - cfg.window))
+        else:
+            slot = pos - first
+            mask = held <= pos[:, None]
+        mine = (slot >= 0) & (slot < rows)
+        write_rows(cache_k, knew[:, 0], torch.where(mine, slot, rows))
+        write_rows(cache_v, vnew[:, 0], torch.where(mine, slot, rows))
     scores = torch.einsum("bkgd,bskd->bkgs", q[:, 0].float(),
                           cache_k.float()) * hd ** -0.5
     scores = torch.where(mask[:, None, None, :], scores, NEG)

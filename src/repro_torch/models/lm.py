@@ -45,13 +45,17 @@ constraints lay them out (``shardings.Place``):
 - the logits are computed by vocab block over the model axis
   (``act_btv``) and gathered whole on every rank, where the loss is
   computed whole;
+- the mamba2 mixer splits its heads over the model axis
+  (``models/ssm.py``), the RG-LRU mixer its width (``models/rglru.py``)
+  and cross-attention its heads, as self-attention does, reading the
+  rank's batch rows of the whole encoder output; the encoder's layers
+  run on the rank's block of the frames (:func:`encode`);
 - the MoE layer runs its expert parallelism (``models/moe.py``) on the
-  rank's block, and the mamba, RG-LRU and cross-attention layers compute
-  whole on every rank, their input gathered and their output cut back
-  to the block;
-- the decode cache is the rank's shard: K/V heads over the model axis
-  where they split, else the rows (``cache_specs``); the other entries
-  are the rank's batch rows, whole on the model axis.
+  rank's block;
+- a rank holds each parameter and decode-cache leaf as its spec cuts it
+  (:func:`local_params` by :func:`param_specs`, :func:`local_cache` by
+  :func:`cache_specs`), the one layout the dry run reads; ``embed`` and
+  ``head`` stay whole, their vocab block cut at use.
 
 Every leaf a rank holds whole gets its whole gradient, summed over the
 ranks whose tokens used it, and a shard its shard's, all through the
@@ -77,10 +81,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks, moe, rglru, ssm
-from repro_torch.models.blocks import C, MetaDraws, _cast, _normal, rmsnorm
+from repro_torch.models.blocks import C, MetaDraws, _normal, rmsnorm
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.shardings import (ALONE, SMOKE, P, Place, Profile,
-                                           block, local_shard, place_of)
+                                           block, local_tree, place_of)
 from repro_torch.tree import tree_map
 
 KINDS = ("attn", "local", "mamba", "rglru")
@@ -195,28 +199,20 @@ def on_mesh(prof: Profile) -> bool:
     return prof.enabled and prof.mesh is not None
 
 
+WHOLE = ("embed", "head")      # held whole on a mesh, cut at use
+
+
 def local_params(params, cfg: ModelConfig, prof: Profile) -> dict:
-    """The parameter tree a rank holds under ``prof``: each self-attention
-    and dense MLP weight cut to the rank's shard by its spec
-    (``blocks.attn_specs``, ``mlp_specs``), each MoE layer's expert
-    weights cut (``moe.local_moe``), every other leaf the same tensor;
+    """The parameter tree (or a tree of its shape, an AdamW moment) a
+    rank holds under ``prof``: each leaf its shard by
+    :func:`param_specs` (``shardings.local_shard``; the tensor itself
+    where its spec cuts nothing), but ``embed`` and ``head``, whole;
     ``params`` itself where the profile has no mesh."""
     if not on_mesh(prof):
         return params
-
-    def cut_tree(p, specs):
-        return {n: local_shard(t, specs[n], prof.mesh) for n, t in p.items()}
-
-    def cut(p):
-        p = dict(p)
-        if "attn" in p:
-            p["attn"] = cut_tree(p["attn"], blocks.attn_specs(cfg, prof))
-        if "mlp" in p:
-            p["mlp"] = cut_tree(p["mlp"], blocks.mlp_specs(cfg, prof))
-        if "moe" in p:
-            p["moe"] = moe.local_moe(p["moe"], cfg, prof)
-        return p
-    return dict(params, layers=[cut(p) for p in params["layers"]])
+    specs = param_specs(cfg, prof)
+    return {k: t if k in WHOLE else local_tree(t, specs[k], prof.mesh)
+            for k, t in params.items()}
 
 
 def params_to(params, device, dtype=None):
@@ -271,14 +267,28 @@ def _cache_rows(k, v, kind: str, cfg: ModelConfig, max_seq: int,
             for name, t in c.items()}
 
 
+def _cross_rows(k, v, cfg: ModelConfig, place: Place) -> dict:
+    """A prefill's cross-attention K/V rows (B_b, F, KV', hd) as the
+    decode cache holds them: the rank's heads where the K/V heads split
+    over the model axis, else its block of the frames."""
+    if blocks.kv_split(cfg, place):
+        return {"xk": k, "xv": v}
+    if k.shape[1] % place.n_model:
+        raise ValueError(f"{k.shape[1]} frames do not split over the model "
+                         f"axis of {place.n_model} ranks")
+    return {n: block(t, 1, place.m, place.n_model).contiguous()
+            for n, t in (("xk", k), ("xv", v))}
+
+
 def _sublayer(p, x, *, kind, cfg: ModelConfig, prof: Profile = SMOKE,
               place: Place = ALONE, positions, enc, causal, chunk, collect,
               max_seq):
     """One layer over x (B, S, D), its weights cast to x's dtype at use
     (so a rematerialised layer recasts them instead of keeping them).
-    On a mesh (module docstring) x is the rank's block (B_b, S_b, D) and
-    ``positions`` (B_b, S) its batch rows'.  Returns (x, the layer's
-    decode cache, on a mesh the rank's shard, or None)."""
+    On a mesh (module docstring) x is the rank's block (B_b, S_b, D),
+    ``positions`` (B_b, S) its batch rows' and ``enc`` its batch rows of
+    the encoder's output (B_b, F, D).  Returns (x, the layer's decode
+    cache, on a mesh the rank's shard, or None)."""
     dt = x.dtype
 
     def norm(name, t):
@@ -296,25 +306,20 @@ def _sublayer(p, x, *, kind, cfg: ModelConfig, prof: Profile = SMOKE,
             new_c = _cache_rows(k, v, kind, cfg, max_seq, place)
         else:
             h = out
-    else:                   # a mixer every rank computes whole
+    else:
         mixer = ssm.mamba_apply if kind == "mamba" else rglru.rglru_apply
-        out = mixer(_cast(p["mixer"], dt), place.whole_in(h), cfg,
-                    return_state=collect)
-        out, state = out if collect else (out, None)
-        h = place.whole_out(out)
-        if collect:
-            new_c = {n: place.batch_block(t) for n, t in state.items()}
+        out = mixer(p["mixer"], h, cfg, return_state=collect, place=place)
+        h, new_c = out if collect else (out, None)
     x = x + h
     if "xattn" in p and enc is not None:
         h = norm("ln_x", x)
-        out = blocks.attn_apply(p["xattn"], place.whole_in(h), cfg,
-                                causal=False, kv_src=enc, use_rope=False,
-                                return_kv=collect)
+        out = blocks.attn_apply(p["xattn"], h, cfg, causal=False,
+                                kv_src=enc, use_rope=False,
+                                return_kv=collect, place=place)
         if collect:
             out, xk, xv = out
-            new_c = dict(new_c, xk=place.batch_block(xk),
-                         xv=place.batch_block(xv))
-        x = x + place.whole_out(out)
+            new_c = dict(new_c, **_cross_rows(xk, xv, cfg, place))
+        x = x + out
     if "mlp" in p or "moe" in p:
         h = norm("ln2", x)
         x = x + (moe.moe_apply(p["moe"], h, cfg, prof, place) if "moe" in p
@@ -385,17 +390,36 @@ def _embed(params, tokens, prefix_embeds, dtype, place: Place):
     return place.take_block(x)
 
 
-def encode(params, frames, cfg: ModelConfig, *, remat=False):
+def encode(params, frames, cfg: ModelConfig, prof: Profile = SMOKE, *,
+           remat=False):
     """The whisper encoder over stub frame embeddings (B, F, D):
     bidirectional attention layers, then ``enc_norm``.  It computes in
     ``C`` (bf16) whatever its weights' dtype and returns that dtype, as
     the reference's does (the training path's float32 masters are cast
-    at use); ``remat`` as in :func:`trunk`."""
+    at use); ``remat`` as in :func:`trunk`.  On a profile with a mesh
+    ``frames`` is whole on every rank, the layers run on the rank's
+    block of it (module docstring) and the result is the rank's batch
+    rows with every frame (B_b, F, D), gathered over the model axis
+    since cross-attention reads them all: what :func:`forward` and
+    :func:`prefill` take as ``enc`` there."""
     b, f, _ = frames.shape
-    x = trunk(params, frames.to(C), cfg, positions=_positions(
-        b, f, frames.device), causal=False, remat=remat,
-        layers_key="enc_layers")
-    return rmsnorm(x, params["enc_norm"].to(x.dtype), cfg.norm_eps)
+    place = place_of(prof, (b, f))
+    x = trunk(params, place.take_block(frames.to(C)), cfg, prof,
+              positions=place.batch_block(_positions(b, f, frames.device)),
+              causal=False, remat=remat, layers_key="enc_layers",
+              place=place)
+    scale = place.shared(params["enc_norm"], model=place.seq_split)
+    return place.enter(rmsnorm(x, scale.to(x.dtype), cfg.norm_eps))
+
+
+def _enc_rows(enc, b: int, place: Place):
+    """``enc`` checked to be the rank's batch rows of the encoder's
+    output (:func:`encode` on the same profile)."""
+    if enc is not None and enc.shape[0] != b // place.n_batch:
+        raise ValueError(f"enc of {enc.shape[0]} rows where the rank holds "
+                         f"{b // place.n_batch} of {b}: on a mesh pass "
+                         f"lm.encode's output on the same profile")
+    return enc
 
 
 def forward(params, tokens, cfg: ModelConfig, prof: Profile = SMOKE, *,
@@ -404,13 +428,15 @@ def forward(params, tokens, cfg: ModelConfig, prof: Profile = SMOKE, *,
 
     ``prefix_embeds`` (B, Np, D): stub frontend output (vision patches),
     prepended to the token embeddings (internvl2); ``enc`` (B, F, D):
-    the encoder's output for cross-attention (whisper).  ``chunk`` as in
+    the encoder's output for cross-attention (whisper; on a mesh the
+    rank's rows, :func:`encode`).  ``chunk`` as in
     :func:`repro_torch.models.blocks.attend_full`."""
     b, s = tokens.shape[0], place_len(tokens, prefix_embeds)
     place = place_of(prof, (b, s))
     x = _embed(params, tokens, prefix_embeds, C, place)
     positions = place.batch_block(_positions(b, s, x.device))
-    x = trunk(params, x, cfg, prof, positions=positions, enc=enc,
+    x = trunk(params, x, cfg, prof, positions=positions,
+              enc=_enc_rows(enc, b, place),
               chunk=chunk, remat=remat, place=place)
     return _logits(params, x, cfg, place)
 
@@ -428,7 +454,8 @@ def prefill(params, tokens, cfg: ModelConfig, prof: Profile = SMOKE, *,
     place = place_of(prof, (b, s))
     x = _embed(params, tokens, prefix_embeds, params["embed"].dtype, place)
     positions = place.batch_block(_positions(b, s, x.device))
-    x, cache = trunk(params, x, cfg, prof, positions=positions, enc=enc,
+    x, cache = trunk(params, x, cfg, prof, positions=positions,
+                     enc=_enc_rows(enc, b, place),
                      chunk=chunk, collect=True, max_seq=max(max_seq, s),
                      place=place)
     last = place.seq_gather(x)[:, -1:]
@@ -469,24 +496,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
 
 def local_cache(cache: list, cfg: ModelConfig, prof: Profile) -> list:
     """The rank's shard of a whole decode cache under ``prof``'s mesh:
-    self-attention K/V by ``prof.cache_kv`` (the rank's heads where they
-    split over the model axis, else its block of the rows), every other
-    entry (recurrent states, cross-attention rows) the rank's batch rows,
-    whole on the model axis, as those layers compute."""
+    each entry cut by :func:`cache_specs` (``shardings.local_shard``)."""
     n_model = prof.mesh.size(prof.mesh.mesh_dim_names.index(prof.model_axis))
-    kvspec = prof.cache_kv(cfg.n_kv_heads, n_model)
-    out = []
-    for c in cache:
-        out.append({n: local_shard(t, kvspec if n in ("k", "v")
-                                   else P(prof.da), prof.mesh)
-                    for n, t in c.items()})
-    return out
+    specs = cache_specs(cfg, prof, n_model)
+    return [local_tree(c, {n: spec[n] for n in c}, prof.mesh)
+            for c, spec in zip(cache, specs, strict=True)]
 
 
 def cache_specs(cfg: ModelConfig, prof: Profile, model_size: int) -> list:
-    """The spec tree of :func:`init_cache`: one dict per layer.  K/V rows
-    by ``prof.cache_kv`` (heads over the model axis where they divide
-    it, else the rows), recurrent states over the batch."""
+    """The spec tree of :func:`init_cache`: one dict per layer.  K/V rows,
+    the cross-attention's too, by ``prof.cache_kv`` (heads over the
+    model axis where they divide it, else the rows); the recurrent
+    states over the batch and their heads or channels over the model
+    axis, mamba's conv rows whole on it."""
     kvspec = prof.cache_kv(cfg.n_kv_heads, model_size)
     specs = []
     for kind in layer_kinds(cfg):
@@ -525,22 +547,25 @@ def _local_decode(p, x, c, pos, cfg: ModelConfig):
 
 
 def _attn_decode(p, x, c, kind: str, pos, cfg: ModelConfig, place: Place):
-    """One-token self-attention of x (B, 1, D) over the layer's cache
-    ``c`` (updated in place).  On a mesh x is the rank's batch rows, its
-    attention tensor-parallel over its cache shard: where the K/V heads
-    split over the model axis the shard is the rank's heads and the
-    decode the dense one on them (its ring for ``"local"``), else its
-    block of the rows (``blocks.decode_rows_tp``); the row-parallel
-    partial outputs are summed over the model axis."""
+    """One-token attention of x (B, 1, D) over the layer's cache ``c``:
+    self-attention over ``k`` / ``v`` (updated in place), ``"cross"``
+    over ``xk`` / ``xv`` (read only).  On a mesh x is the rank's batch
+    rows, its attention tensor-parallel over its cache shard: where the
+    K/V heads split over the model axis the shard is the rank's heads
+    and the decode the dense one on them (its ring for ``"local"``),
+    else its block of the rows (``blocks.decode_rows_tp``); the
+    row-parallel partial outputs are summed over the model axis."""
     p = blocks.tp_weights(p, place, x.dtype)
+    k, v = (c["xk"], c["xv"]) if kind == "cross" else (c["k"], c["v"])
     if not blocks.kv_split(cfg, place):
-        out = blocks.decode_rows_tp(p, x, c["k"], c["v"], pos, cfg, place,
-                                    kind)
+        out = blocks.decode_rows_tp(p, x, k, v, pos, cfg, place, kind)
     elif kind == "local":
         out = _local_decode(p, x, c, pos, blocks.local_heads(cfg, place))
     else:
-        out = blocks.attn_decode(p, x, c["k"], c["v"], pos,
-                                 blocks.local_heads(cfg, place))[0]
+        cross = kind == "cross"
+        out = blocks.attn_decode(p, x, k, v, pos,
+                                 blocks.local_heads(cfg, place), cross=cross,
+                                 use_rope=not cross)[0]
     return place.leave(out)
 
 
@@ -554,14 +579,12 @@ def decode_layer(p, x, c, kind: str, pos, cfg: ModelConfig,
         h = _attn_decode(p["attn"], h, c, kind, pos, cfg, place)
     else:
         step = ssm.mamba_decode if kind == "mamba" else rglru.rglru_decode
-        h, new = step(p["mixer"], h, c, cfg)
+        h, new = step(p["mixer"], h, c, cfg, place)
         c.update(new)
     x = x + h
     if "xattn" in p:
         h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
-        h, _, _ = blocks.attn_decode(p["xattn"], h, c["xk"], c["xv"], pos,
-                                     cfg, cross=True, use_rope=False)
-        x = x + h
+        x = x + _attn_decode(p["xattn"], h, c, "cross", pos, cfg, place)
     if "mlp" in p or "moe" in p:
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
         x = x + (moe.moe_apply(p["moe"], h, cfg, prof, place) if "moe" in p

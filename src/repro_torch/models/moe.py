@@ -37,19 +37,21 @@ Two dispatch paths, chosen as the reference chooses them:
   ``all_to_all``), all-gathers its E/n_model experts' weight shards
   over the data axes (ZeRO), runs them, sends the outputs back,
   combines, and adds the shared experts and the dense residual on the
-  block.  Each step is a ``torch.autograd.Function`` with its adjoint:
-  the gather-out takes the rank's block, the block-in gathers the
+  block, tensor-parallel as the dense MLP is (``blocks.mlp_apply``).
+  Each step is a ``torch.autograd.Function`` with its adjoint: the
+  gather-out takes the rank's block, the block-in gathers the
   blocks' gradients (``dx`` whole and equal on every rank), the exchange
-  reverses, and the sums, the replicated weights' (router, shared
-  experts, dense residual) over every rank and each expert shard's over
-  the data ranks, go through the fixed-ring
+  reverses, and the sums, the router's over every rank, each expert
+  shard's over the data ranks and the shared experts' and dense
+  residual's as the MLP's, go through the fixed-ring
   ``ordered_ring_reduce`` over the mesh's subgroups, so that a gradient
   is bitwise the same whatever the ranks' timing.  A gradient needs
   blocks that partition the tokens (the sequence split over the model
   axis and the batch over the data axes); a call whose blocks repeat
-  tokens (a decode step's) runs forward only.  A rank holds its
-  experts' shards (:func:`local_moe`), every other weight of the layer
-  (the router, shared experts and dense residual) whole.
+  tokens (a decode step's) runs forward only.  A rank holds each leaf
+  as :func:`moe_specs` cuts it (``lm.local_params``): its experts'
+  shards, the shared experts' and dense residual's MLP shards, the
+  router whole.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ from repro_torch.models.blocks import (C, _cast, _normal, init_mlp,
                                        mlp_apply, mlp_specs)
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.shardings import (ALONE, SMOKE, Across, P, Place,
-                                           Profile, local_shard)
+                                           Profile)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype=C) -> dict:
@@ -191,27 +193,17 @@ def moe_apply(p, x, cfg: ModelConfig, prof: Profile = SMOKE,
     return _dense_parts(p, x, out, cfg)
 
 
-def _dense_parts(p, x, out, cfg: ModelConfig):
+def _dense_parts(p, x, out, cfg: ModelConfig, place: Place = ALONE):
     """``out`` plus the shared experts' and the dense residual's outputs
-    on x, where the layer has them."""
+    on x, where the layer has them (on the rank's ``place``)."""
     for name in ("shared", "residual"):
         if name in p:
-            out = out + mlp_apply(p[name], x, cfg)
+            out = out + mlp_apply(p[name], x, cfg, place)
     return out
 
 
 # ------------------------------------------------------ expert parallelism
 EXPERT_LEAVES = ("w1", "w3", "w2")
-
-
-def local_moe(p: dict, cfg: ModelConfig, prof: Profile) -> dict:
-    """The MoE weights ``p`` as a rank holds them under ``prof``: the
-    expert leaves cut to the rank's shard by :func:`moe_specs` (experts
-    over the model axis, D of w1/w3 and F of w2 over the data axes),
-    every other leaf the same tensor."""
-    specs = moe_specs(cfg, prof)
-    return dict(p, **{n: local_shard(p[n], specs[n], prof.mesh)
-                      for n in EXPERT_LEAVES})
 
 
 class _ExpertMesh(Place):
@@ -262,9 +254,9 @@ class _ExpertMesh(Place):
 def _expert_parallel(p, xl, cfg: ModelConfig, ep: _ExpertMesh):
     """The layer on the rank's block xl (B_b, S_b, D) by the
     expert-parallel schedule (module docstring): the rank's block of the
-    output.  The router's, the shared experts' and the dense residual's
-    weights are whole on every rank, their gradients summed over every
-    rank."""
+    output.  The router is whole on every rank, its gradient summed over
+    every rank; the shared experts and the dense residual run
+    tensor-parallel on the block."""
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
     el = e // ep.n_model
     for name, shape in (("w1", (el, d // ep.n_data, f)),
@@ -281,11 +273,8 @@ def _expert_parallel(p, xl, cfg: ModelConfig, ep: _ExpertMesh):
                          "over the data axes): such a call carries no "
                          "gradient")
     bl, sl, _ = xl.shape
-    whole = lambda w: ep.shared(w, model=True)
     # ZeRO: each expert shard gathered over the data axes at use
     w1, w3, w2 = (ep.zero(p[n], 1) for n in EXPERT_LEAVES)
-    y = _routed(xl.reshape(bl * sl, d), whole(p["router"]), w1, w3, w2, cfg,
-                ep).reshape(bl, sl, d)
-    dense = {n: {k: whole(w) for k, w in p[n].items()}
-             for n in ("shared", "residual") if n in p}
-    return _dense_parts(dense, xl, y, cfg)
+    y = _routed(xl.reshape(bl * sl, d), ep.shared(p["router"], model=True),
+                w1, w3, w2, cfg, ep).reshape(bl, sl, d)
+    return _dense_parts(p, xl, y, cfg, ep)

@@ -12,6 +12,17 @@ in float32 (ceil(log2 S) steps; the reference's ``associative_scan``),
 never as a loop over positions; decode is an O(1) state update.  The
 conv is 4 taps wide whatever ``cfg.conv_width`` says, as in the
 reference.
+
+On a mesh (the ``place`` argument, ``runtime/shardings.Place``;
+``ALONE``, the identity, without one) the width W splits over the model
+axis after ``w_x``, as the reference's ``act_btf`` constraint splits
+it: a rank takes its normalised block, gathers its sequence and
+computes its channel block through ``w_x`` and ``w_gate`` (column
+blocks, their FSDP shards gathered at use), its columns of the
+replicated conv, its gates and ``lam`` (already cut) and the doubling
+scan, channel by channel; its rows of ``w_out`` give partial outputs
+summed into the rank's block.  The decode state (B_b, W / n) and conv
+rows (B_b, 3, W / n) are the rank's channels.
 """
 
 from __future__ import annotations
@@ -19,10 +30,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.blocks import C, _cast, _normal
+from repro_torch.models.blocks import C, _normal
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import _causal_conv, conv_tail
-from repro_torch.runtime.shardings import Profile
+from repro_torch.runtime.shardings import ALONE, Place, Profile, block
 
 _C_GATE = 8.0
 CONV_WIDTH = 4
@@ -55,9 +66,24 @@ def rglru_specs(cfg: ModelConfig, prof: Profile) -> dict:
     }
 
 
+GATES = ("w_r", "b_r", "w_i", "b_i", "lam")
+
+
+def _rank_weights(p, place: Place, dtype) -> dict:
+    """The mixer's weights as the rank uses them, in ``dtype`` (module
+    docstring); the leaves themselves, cast, off a mesh."""
+    out = {"w_x": place.zero(p["w_x"], 0),
+           "w_gate": place.zero(p["w_gate"], 0),
+           "conv": block(place.shared(p["conv"], model=True), -1, place.m,
+                         place.n_model),
+           "w_out": place.zero(p["w_out"], 1)}
+    out.update({k: place.shared(p[k], model=False) for k in GATES})
+    return {k: t.to(dtype) for k, t in out.items()}
+
+
 def _gates(p, xb):
     """xb (..., W) float32 -> (a, ix): the decay and the gated input."""
-    pf = {k: p[k].float() for k in ("w_r", "b_r", "w_i", "b_i", "lam")}
+    pf = {k: p[k].float() for k in GATES}
     r = torch.sigmoid(xb * pf["w_r"] + pf["b_r"])
     i = torch.sigmoid(xb * pf["w_i"] + pf["b_i"])
     a = torch.exp(-_C_GATE * F.softplus(pf["lam"]) * r)
@@ -77,17 +103,22 @@ def linear_scan(a, x):
     return x
 
 
-def rglru_apply(p, x, cfg: ModelConfig, *, return_state=False):
+def rglru_apply(p, x, cfg: ModelConfig, *, return_state=False,
+                place: Place = ALONE):
     """Full sequence.  x (B, S, D) -> (B, S, D); ``return_state`` also
-    returns the decode cache ``{state (B, W), conv (B, 3, W)}``."""
+    returns the decode cache ``{state (B, W), conv (B, 3, W)}``.  With
+    the ``place`` of a rank on a mesh (module docstring) x is the rank's
+    normalised block (B_b, S_b, D), the output its block and the cache
+    its shard."""
+    x = place.enter(x)
     cd = x.dtype
-    p = _cast(p, cd)
+    p = _rank_weights(p, place, cd)
     xb_raw = x @ p["w_x"]
     xb = _causal_conv(xb_raw, p["conv"]).float()
     gate = F.gelu((x @ p["w_gate"]).float(), approximate="tanh")
     a, ix = _gates(p, xb)
     h = linear_scan(a, ix)
-    out = (h * gate).to(cd) @ p["w_out"]
+    out = place.leave((h * gate).to(cd) @ p["w_out"])
     if return_state:
         return out, {"state": h[:, -1],
                      "conv": conv_tail(xb_raw, CONV_WIDTH, cfg.name)}
@@ -102,16 +133,20 @@ def rglru_init_cache(cfg: ModelConfig, batch: int, device="cuda",
                                 device=device)}
 
 
-def rglru_decode(p, x, cache, cfg: ModelConfig):
+def rglru_decode(p, x, cache, cfg: ModelConfig, place: Place = ALONE):
     """One-token step in the parameters' dtype.  x (B, 1, D).  Returns
-    (out, new cache)."""
+    (out, new cache).  With the ``place`` of a rank on a mesh x is its
+    batch rows, the cache its channels (module docstring) and the output
+    its partial sums summed over the model axis."""
+    x = place.enter(x)
     cd = x.dtype
+    p = _rank_weights(p, place, cd)
     xb = x @ p["w_x"]                                        # (B,1,W)
     window = torch.cat([cache["conv"].to(cd), xb], dim=1)    # (B,4,W)
     xc = torch.einsum("bwc,wc->bc", window.float(), p["conv"].float())
     gate = F.gelu((x[:, 0] @ p["w_gate"]).float(), approximate="tanh")
     a, ix = _gates(p, xc)
     h = cache["state"].float() * a + ix
-    out = ((h * gate).to(cd) @ p["w_out"])[:, None]
+    out = place.leave(((h * gate).to(cd) @ p["w_out"])[:, None])
     return out, {"state": h.to(cache["state"].dtype),
                  "conv": window[:, 1:].to(cache["conv"].dtype)}

@@ -29,9 +29,9 @@ and the collectives that cross ranks, each a :class:`Across` step with
 its adjoint.  Without a mesh the place is :data:`ALONE`, whose blocks
 are the whole and whose steps are the identity, so one body of each
 model function serves both (:func:`place_of`).  The reference's ``cons`` constraints become those steps
-(``models/lm.py``): the sequence gathered at each attention and MLP
-sublayer's entry and reduce-scattered at its exit (Megatron-SP), the
-ZeRO gather of FSDP shards, the logits gathered from their vocab blocks.
+(``models/lm.py``): the sequence gathered at each sublayer's entry and
+reduce-scattered at its exit (Megatron-SP), the ZeRO gather of FSDP
+shards, the logits gathered from their vocab blocks.
 Every sum over ranks goes through the fixed-ring ``ordered_ring_reduce``
 (a reduce-scatter is that sum, then the rank's block), so a result is
 bitwise the same whatever the ranks' timing; ``cons`` itself stays the
@@ -46,6 +46,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.optim.ordered_reduce import ordered_ring_reduce
+from repro_torch.tree import flatten_up_to, leaves, unflatten
 
 
 class P(tuple):
@@ -275,6 +276,14 @@ def local_shard(t, spec, mesh):
     return t if out is t else out.clone()
 
 
+def local_tree(tree, specs, mesh):
+    """A tree of tensors as a rank holds it: each leaf
+    :func:`local_shard` by its spec in ``specs`` (the tree's structure
+    with a spec at each leaf)."""
+    return unflatten(tree, [local_shard(t, spec, mesh) for t, spec in zip(
+        leaves(tree), flatten_up_to(tree, specs), strict=True)])
+
+
 # ------------------------------------------------ collectives on a mesh
 class Across(torch.autograd.Function):
     """A step that crosses ranks: ``fwd(t)`` forward and its adjoint
@@ -381,9 +390,9 @@ class Place:
             x = gather(x, group, 0)
         return x
 
-    # a computation that every rank runs whole and alike (the layers
-    # without tensor parallelism): its input and output whole on every
-    # rank, and so their cotangents
+    # a computation that every rank runs whole and alike (a MoE layer
+    # whose blocks are not the residual stream's): its input and output
+    # whole on every rank, and so their cotangents
     def whole_in(self, h):
         return Across.apply(h, self.gather_blocks, self.take_block)
 
@@ -413,6 +422,13 @@ class Place:
         """The row-parallel partial outputs (B_b, S, D) summed over the
         model axis into the rank's block."""
         return Across.apply(y, self._seq_sum, self.seq_gather)
+
+    def model_sum(self, t):
+        """The sum of the ranks' ``t`` over the model axis, the same on
+        every rank (a statistic of a whole row that each rank holds a
+        block of); its adjoint sums the cotangents likewise."""
+        ring = lambda x: ordered_ring_reduce(x, self.model)
+        return Across.apply(t, ring, ring)
 
     def gather_heads(self, t):
         """A column-parallel projection's blocks (..., F / n_model)
@@ -483,8 +499,8 @@ class Alone(Place):
         pass
 
     batch_block = take_block = gather_blocks = whole_in = whole_out = \
-        seq_gather = enter = leave = gather_heads = gather_logits = \
-        shared = zero = staticmethod(_as_is)
+        seq_gather = enter = leave = model_sum = gather_heads = \
+        gather_logits = shared = zero = staticmethod(_as_is)
 
 
 ALONE = Alone()

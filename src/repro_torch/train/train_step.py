@@ -26,8 +26,8 @@ use.  A step returns ``(new_state, loss)`` and leaves the state it was
 given as it was.  The optimizer is AdamW or Adafactor.
 ``make_train_step`` takes the reference's profile (``prof``, ``SMOKE``
 by default) and hands it to the model.  On a mesh every rank holds its
-own shards of the state (``lm.local_params``: the attention and MLP
-weights and the experts cut by their specs, every other leaf whole),
+own shards of the state (``lm.local_params``: every leaf cut by its
+spec but the embedding and head, whole),
 runs the model SPMD on its block of the batch and sequence
 (``models/lm.py``) and computes the same loss from the logits gathered
 whole; the backward pass's ordered sums over ranks leave every whole
@@ -109,7 +109,7 @@ def loss_fn(params, batch, cfg: ModelConfig, *, prof: Profile = SMOKE,
     ``lm.forward``."""
     enc = None
     if cfg.encoder_layers:
-        enc = lm.encode(params, batch["frames"], cfg, remat=remat)
+        enc = lm.encode(params, batch["frames"], cfg, prof, remat=remat)
     logits = lm.forward(params, batch["tokens"], cfg, prof,
                         prefix_embeds=batch.get("patches"), enc=enc,
                         chunk=chunk, remat=remat)

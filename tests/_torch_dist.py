@@ -298,10 +298,12 @@ def _refusals(prof) -> dict:
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import moe
+    from repro_torch.runtime.shardings import local_tree
     from repro_torch.train import make_train_step
     cfg = get_smoke_config("deepseek-moe-16b")
     gen = torch.Generator().manual_seed(0)
-    p = moe.local_moe(moe.init_moe(gen, cfg, torch.float32), cfg, prof)
+    p = local_tree(moe.init_moe(gen, cfg, torch.float32),
+                   moe.moe_specs(cfg, prof), prof.mesh)
     x = lambda b, s, grad=False: torch.zeros(
         (b, s, cfg.d_model), requires_grad=grad)
     six = dataclasses.replace(cfg, n_experts=6)
@@ -617,23 +619,49 @@ def _tp_layer(case, cfg, prof) -> dict:
                 gp=[g.numpy() for g in grads[1:]])
 
 
+def _forward_flops(params, tokens, extra, cfg, prof) -> int:
+    """The FLOPs (``FlopCounterMode``) of ``lm.forward`` on ``prof``,
+    whisper's ``lm.encode`` included."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import lm
+    with FlopCounterMode(display=False) as counter:
+        lm.forward(params, tokens, cfg, prof, **_model_kw(
+            params, extra, cfg, prof))
+    return counter.get_total_flops()
+
+
+def _model_kw(params, extra, cfg, prof) -> dict:
+    """``lm.forward``'s and ``lm.prefill``'s keywords for an arch's
+    extra inputs: whisper's encoder output (the rank's rows on a mesh),
+    internvl2's patch prefix."""
+    from repro_torch.models import lm
+    kw = {}
+    if "frames" in extra:
+        kw["enc"] = lm.encode(params, extra["frames"], cfg, prof)
+    if "patches" in extra:
+        kw["prefix_embeds"] = extra["patches"]
+    return kw
+
+
 def _tp_model(case, cfg, prof, session: bool) -> dict:
     import _torch_tp as tp
     from repro_torch import convert
     from repro_torch.models import lm
+    from repro_torch.runtime.shardings import SMOKE
     from repro_torch.serve.session import Session
     params = convert.lm_params_from_numpy(case["params"], cfg, "cpu",
                                           torch.float32, prof)
     tokens = torch.from_numpy(case["tokens"])
     extra = {k: torch.from_numpy(v) for k, v in case["extra"].items()}
-    kw = {}
-    if "frames" in extra:
-        kw["enc"] = lm.encode(params, extra["frames"], cfg)
-    if "patches" in extra:
-        kw["prefix_embeds"] = extra["patches"]
     out = {}
     with torch.no_grad():
+        kw = _model_kw(params, extra, cfg, prof)
         out["logits"] = lm.forward(params, tokens, cfg, prof, **kw).numpy()
+        whole = convert.lm_params_from_numpy(case["params"], cfg, "cpu",
+                                             torch.float32)
+        out["flops"] = (_forward_flops(params, tokens, extra, cfg, prof),
+                        _forward_flops(whole, tokens, extra, cfg, SMOKE))
         last, cache = lm.prefill(params, tokens, cfg, prof,
                                  max_seq=tp.MAX_SEQ, **kw)
         out["prefill"] = last.numpy()
@@ -655,14 +683,16 @@ def _tp_model(case, cfg, prof, session: bool) -> dict:
 
 
 def tp_worker(rank, world, init, inputs, out, parts):
-    """The port's tensor- and sequence-parallel attention and MLP on a
+    """The port's tensor- and sequence-parallel model on a
     (2, 4) ("data", "model") mesh of gloo ranks, in float32 (``C`` set in
     the port's model modules), for each arch of the pickled ``inputs``
     (the reference's numpy weights and the inputs, with an encoder's
     frames or a patch prefix where the arch takes them): ``parts`` of
     "layer" (the first layer's output and gradients, its input whole on
     every rank), "model" (``lm.forward``, ``lm.prefill`` and its cache
-    shard, a ``decode_step`` from a cut random cache), "session" (with
+    shard, a ``decode_step`` from a cut random cache, the FLOPs of the
+    rank's ``lm.forward`` and of the dense one over the whole batch,
+    whisper's ``lm.encode`` in each), "session" (with
     "model": a ``Session`` prefill and 4 steps with its fingerprint) and
     "train" (one pot step, AdamW, 2
     microbatches, twice: the second time the rank at data 1, model 0

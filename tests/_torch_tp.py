@@ -1,7 +1,8 @@
-"""Tensor and sequence parallelism of the port's attention and MLP
-sublayers (``repro_torch.models.blocks.attn_apply`` and ``mlp_apply``
-with a rank's place, ``lm._sublayer``) against the reference's own mesh
-run, shared by ``tests/test_torch_tp*.py``.
+"""Tensor and sequence parallelism of the port's sublayers (attention
+and the MLP, ``repro_torch.models.blocks.attn_apply`` and ``mlp_apply``;
+the mamba2 and RG-LRU mixers; whisper's encoder and cross-attention;
+each with a rank's place, ``lm._sublayer``) against the reference's own
+mesh run, shared by ``tests/test_torch_tp*.py``.
 
 The reference runs in one subprocess (:func:`reference_main`) with 8
 host devices on a (2, 4) ("data", "model") mesh of ``Auto`` axes (jax
@@ -44,7 +45,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 DATA, MODEL = 2, 4
 WORLD = DATA * MODEL
 ARCHS = ("stablelm-12b", "qwen15-32b", "gemma3-27b")
-# the layer kinds a mesh computes whole, beside TP attention and MLP
+# the other layer kinds: the mixers, the encoder and cross-attention,
+# a patch prefix
 KIND_ARCHS = ("mamba2-370m", "recurrentgemma-9b", "whisper-medium",
               "internvl2-26b")
 B, S = 4, 32                # the inputs' batch and sequence
@@ -53,6 +55,10 @@ LR = 1e-3
 LAYER_REL = 1e-5            # relative L2 of the layer's output
 F32_REL = 1e-4              # gradients, logits, caches, new parameters
 F32_LOSS = 1e-5
+# the 8 ranks' forward FLOPs against the dense forward's: each rank
+# computes its share, mamba's B and C columns and C.B scores on every
+# model rank
+FLOPS_BOUND = 1.5
 
 
 def case_inputs(arch, parts) -> dict:
@@ -239,8 +245,8 @@ def profile(coord):
 # ------------------------------------------------ the train step's checks
 def expected(ref_state, cfg, coord) -> list:
     """The reference's new state as rank ``coord``'s leaves: the port's
-    tree order, the attention and MLP leaves cut to the rank's shards
-    (``lm.local_params``)."""
+    tree order, each leaf but the embedding and head cut to the rank's
+    shard (``lm.local_params``)."""
     exp = convert.train_state_from_numpy(ref_state, cfg, device="cpu")
     prof = profile(coord)
     trees = [lm.local_params(t, cfg, prof)
@@ -316,6 +322,18 @@ def check_forward_and_prefill(runs, arch):
                 assert rel(mine[name], t.numpy()) <= F32_REL, name
         for key in ("logits", "prefill"):
             assert same_bits(model[key], ranks[0][arch]["model"][key])
+
+
+def check_forward_flops(runs, arch):
+    """The ranks' ``lm.forward`` FLOPs (whisper's ``lm.encode`` included)
+    sum to at least the dense forward's over the whole batch and at most
+    ``FLOPS_BOUND`` times it: no rank computes a layer whole."""
+    _, ranks = runs
+    dense = {got[arch]["model"]["flops"][1] for got in ranks}
+    assert len(dense) == 1, dense
+    dense = dense.pop()
+    total = sum(got[arch]["model"]["flops"][0] for got in ranks)
+    assert dense <= total <= FLOPS_BOUND * dense, (total, dense)
 
 
 def check_decode_step(runs, arch):

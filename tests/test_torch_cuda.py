@@ -9,8 +9,9 @@ CPU's, the sharded store's kernels at W_s = 4,096 (their OR over shards
 against the dense kernels), sharded sessions and a replica's failover on
 the card, the serving
 session on the card against the CPU's, the AdamW kernel at tensor-
-parallel shards' shapes and the paged commit into a K/V cache's head
-shard, a Pot train step on the card
+parallel shards' shapes (attention and the MLP; the mixers, whisper's
+encoder and cross-attention) and the paged commit into a K/V cache's
+head shard, a Pot train step on the card
 run twice, bitwise, and the DP step of the other layer kinds (the AdamW
 kernel at their leaves) twice, bitwise.
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
@@ -668,6 +669,36 @@ def test_adamw_kernel_at_tensor_parallel_shards(cuda, shape, gdtype):
     p, m, v, g = (t.reshape(shape) for t in _adamw_inputs(
         n, gdtype, cuda, n % 997))
     hp = fused_adamw.hp_vector(2, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                               wd=0.01, device=cuda)
+    fused_adamw.reset_launches()
+    got = fused_adamw.fused_adamw(p, m, v, g, hp)
+    torch.cuda.synchronize()
+    assert fused_adamw.LAUNCHES["fused_adamw"] == 1
+    assert _bits_equal(got, ref.adamw_ref(p, m, v, g, hp))
+
+
+@pytest.mark.parametrize("shape", [
+    # mamba2-370m's mixer on a 4-way model axis, whole and with FSDP over
+    # 2 data ranks: w_in (1024, 4384 / 4), w_out (2048 / 4, 1024), the
+    # norm's block (2048 / 4,)
+    (1024, 1096), (512, 1096), (512, 1024), (512, 512), (512,),
+    # recurrentgemma-9b's RG-LRU: w_x and w_gate (4096, 4096 / 4), w_out
+    # (4096 / 4, 4096), a gate's block (4096 / 4,)
+    (4096, 1024), (2048, 1024), (1024, 4096), (1024, 2048), (1024,),
+    # whisper-medium's encoder layers and cross-attention: wq, wk, wv
+    # (1024, 1024 / 4), wo (1024 / 4, 1024), the encoder MLP's w1 (1024,
+    # 4096 / 4) and w2 (4096 / 4, 1024)
+    (1024, 256), (512, 256), (256, 1024), (256, 512), (1024, 1024),
+])
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+def test_adamw_kernel_at_mixer_and_encoder_shards(cuda, shape, gdtype):
+    """The fused AdamW kernel at the mixers', the encoder's and
+    cross-attention's leaves a rank holds on a mesh (``lm.local_params``),
+    against its plain version."""
+    n = int(np.prod(shape))
+    p, m, v, g = (t.reshape(shape) for t in _adamw_inputs(
+        n, gdtype, cuda, n % 991))
+    hp = fused_adamw.hp_vector(4, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
                                wd=0.01, device=cuda)
     fused_adamw.reset_launches()
     got = fused_adamw.fused_adamw(p, m, v, g, hp)

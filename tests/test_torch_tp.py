@@ -23,6 +23,7 @@ import _torch_train
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import lm
+from repro_torch.runtime.shardings import local_tree
 from repro_torch.tree import leaves, tree_map
 
 
@@ -33,10 +34,12 @@ def runs(tmp_path_factory):
 
 def rank_grads(gp, cfg, coord) -> list:
     """The reference's whole gradient of layer 0 as rank ``coord``'s
-    leaves (``lm.local_params``'s cut)."""
+    leaves (``lm.local_params``'s cut: layer 0's specs)."""
     layer = tree_map(lambda a: torch.from_numpy(np.array(a)), gp)
-    cut = lm.local_params({"layers": [layer]}, cfg, tp.profile(coord))
-    return [t.numpy() for t in leaves(cut["layers"][0])]
+    prof = tp.profile(coord)
+    cut = local_tree(layer, lm.param_specs(cfg, prof)["layers"][0],
+                     prof.mesh)
+    return [t.numpy() for t in leaves(cut)]
 
 
 @pytest.mark.parametrize("arch", tp.ARCHS)

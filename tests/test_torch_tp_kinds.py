@@ -1,16 +1,19 @@
-"""The layer kinds that a mesh computes whole on every rank, beside
-tensor- and sequence-parallel attention and MLP, on 8 gloo ranks of a
-(2, 4) mesh against the reference's own (2, 4) mesh run on 8 host
-devices (``tests/_torch_tp.py``), in float32: mamba2-smoke (the SSD
-mixer, its input gathered whole and its output cut back to the rank's
-block, its decode state a batch block).
+"""Tensor and sequence parallelism of the other layer kinds, beside
+attention and the MLP, on 8 gloo ranks of a (2, 4) mesh against the
+reference's own (2, 4) mesh run on 8 host devices
+(``tests/_torch_tp.py``), in float32: mamba2-smoke (the SSD mixer's
+heads over the model axis: ``w_in`` gathered whole and cut to the
+rank's heads and all of B and C, the gated RMSNorm's mean square summed
+over the model axis, the decode state the rank's heads, the conv rows
+whole on the model axis).
 ``lm.forward``'s logits, ``lm.prefill``'s last logits and each rank's
 cache shard (the reference's cache cut by ``lm.local_cache``), one
 ``decode_step`` from a random cache cut to the rank's shard, and one pot
 step (AdamW, 2 microbatches): logits, caches and new leaves within 1e-4
 in relative L2, the loss within rtol 1e-5, bitwise the same with a rank
 joining each backward 0.2 s late, and the leaves every rank holds whole
-bitwise the same on every rank.  whisper's encoder and cross-attention
+bitwise the same on every rank; the 8 ranks' forward FLOPs at most 1.5
+times the dense forward's.  whisper's encoder and cross-attention
 are in ``tests/test_torch_tp_kinds_whisper.py``, RG-LRU with the local
 ring in ``tests/test_torch_tp_kinds_ring.py``, internvl2's patch prefix
 in ``tests/test_torch_tp_kinds_patches.py`` (one architecture a file, to
@@ -36,6 +39,11 @@ def runs(tmp_path_factory):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_and_prefill_match_reference_mesh_run(runs, arch):
     tp.check_forward_and_prefill(runs, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_flops_are_shared_out(runs, arch):
+    tp.check_forward_flops(runs, arch)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

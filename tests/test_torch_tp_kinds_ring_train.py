@@ -1,10 +1,10 @@
-"""The layer kinds that a mesh computes whole on every rank, beside
-tensor- and sequence-parallel attention and MLP, on 8 gloo ranks of a
-(2, 4) mesh against the reference's own (2, 4) mesh run on 8 host
-devices (``tests/_torch_tp.py``), in float32: recurrentgemma-smoke
-(RG-LRU mixers computed whole, their states a batch block, and the
-local ring's attention tensor-parallel, its one K/V head's ring cut by
-rows): one pot step (AdamW, 2 microbatches), its new leaves within 1e-4
+"""Tensor and sequence parallelism of the other layer kinds, beside
+attention and the MLP, on 8 gloo ranks of a (2, 4) mesh against the
+reference's own (2, 4) mesh run on 8 host devices
+(``tests/_torch_tp.py``), in float32: recurrentgemma-smoke (the RG-LRU
+mixers' width over the model axis after ``w_x``, and the local ring's
+attention tensor-parallel, its one K/V head's ring cut by rows): one pot
+step (AdamW, 2 microbatches), its new leaves within 1e-4
 in relative L2 and of the shapes their specs give, the loss within rtol
 1e-5, bitwise the same with a rank joining each backward 0.2 s late,
 and the leaves every rank holds whole bitwise the same on every rank.
