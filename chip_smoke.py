@@ -48,9 +48,10 @@ Phases, each printing its own lines:
    bitwise equal to the card's, and the final store must equal a plain
    numpy serial interpreter's;
 5. the host time of each step of one full-rung round (synchronised);
-3b. (run after 5) pipelined ingress serving: the stream's 4 batches
-   (4,096 transactions, of which phase 3 runs the first 2) admitted one
-   by one to an ``IngressPool`` (capacity 4,096, each under its
+3b. (run after 5) pipelined ingress serving: the stream's 2 batches
+   (2,048 transactions, those phase 3 runs; two more were cut for the
+   time limit) admitted one
+   by one to an ``IngressPool`` (capacity 2,048, each under its
    workload lane, journal on), then served from its arrival journal
    through ``PotSession(..., engine="pcc", pipeline_depth=D,
    device="cuda").serve(pool, budget=1024)`` twice, at D = 0 and D = 2
@@ -132,9 +133,10 @@ Phases, each printing its own lines:
    their times, the plain versions', the dense gather's on the card, the
    entry point's (packing included) and the bound (K·W·4 B over the
    memory rate);
-10. (run last but one) the four engines at the main path's size, one batch each
-   (phase 3's first: K = 1024, O = 1,048,576, 8 lanes; the cut is to one
-   batch per engine, never K or O): PCC, PoGL, DeSTM and OCC through
+10. (run last but one) the four engines on the main path's store, one batch each
+   (the first 256 rows of phase 3's first batch, O = 1,048,576, 8
+   lanes; the cut is to one batch per engine and, for the time limit,
+   to 256 of its 1,024 rows, never O): PCC, PoGL, DeSTM and OCC through
    ``PotSession.submit``, DeSTM's serial token walk and OCC under a
    seeded random arrival through ``destm_execute`` / ``occ_execute``,
    each with the conflict kernels' launches counted around it.  PoGL and
@@ -165,7 +167,7 @@ Phases, each printing its own lines:
    log, with the validation kernel launched per shard;
 12. (run after 11) recovery on the card: ``run_replica`` over phase 3b's
    arrival journal (budget 1,024, PCC, a snapshot after every batch)
-   killed by ``FaultPlan(kill_batch=2, kill_phase="execute",
+   killed by ``FaultPlan(kill_batch=1, kill_phase="execute",
    action="raise")`` and resumed (``resume=True``): store, replay log and
    trace digests bitwise equal to phase 3b's depth-0 serve; the ms to
    write and to verify-load one snapshot of the 1,048,576-object store
@@ -310,10 +312,19 @@ Phases, each printing its own lines:
    ``prefill`` and the decode step after ``lm.encode`` on the same
    profile: the decode step reads the cross rows the prefill wrote,
    where the ``Session``, which prefills without ``enc``, reads zero
-   rows);
+   rows); d. the last of the mesh layout (the embedding and head held
+   by vocab block, whole at world 1, run through b and c too): one
+   Adafactor pot step (2 microbatches, float32 masters) on the mesh
+   against ``SMOKE`` for b's stablelm cell and 18c's deepseek cell
+   (loss and every parameter and statistic leaf), then the ``pure_dp``
+   profile (``Profile(mesh=, pure_dp=True)``) on stablelm-12b and
+   mamba2-370m, each cut to 2 layers, with b's checks, launches and
+   times and an Adafactor step, all bitwise equal; and a MoE config
+   under ``pure_dp`` refused (its expert specs name the model axis
+   twice);
 10b. (run last) each engine pipelined: ``run_stream`` at
-   ``pipeline_depth=2`` over the first 256 rows of the stream's first
-   three batches on the card, equal to the same engine's serial run on the card
+   ``pipeline_depth=2`` over the first 64 rows of the stream's first
+   three batches (256 until the time limit cut them) on the card, equal to the same engine's serial run on the card
    in every trace field but ``spec_*`` and to its pipelined run on the CPU
    in every field; per engine the times of the card's two runs (the
    repeated serial run was cut to keep the run near 600 s), ``spec_*``
@@ -354,11 +365,12 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 N_OBJECTS = 1 << 20     # STAMP vacation -r1048576
 K = 1024                # transactions per batch
 N_LANES = 8
-N_BATCHES = 4
+N_BATCHES = 2           # phase 3b's cut of depth (was 4): the time limit
 MAIN_PATH_BATCHES = 2   # phases 3-4's cut; phase 3b serves all N_BATCHES
 SEED = 0
 VALIDATE_PREFIX = 512   # phase 2d: the writers of the validated set
-ENGINES_CPU_K = 256     # phase 10b: rows of each batch, card and CPU
+ENGINES_K = 256         # phase 10: rows of the first batch, card and CPU
+ENGINES_CPU_K = 64      # phase 10b: rows of each batch, card and CPU
 REFEREE_THREADS = 4     # torch threads of the CPU referee (see main)
 
 SERVE_ARCH = "stablelm-12b"
@@ -429,6 +441,9 @@ TP_ARCH, TP_LAYERS, TP_ROWS, TP_SEQ = "stablelm-12b", 2, 8, 128
 # layers kept); the inputs, session and step as phase 19b's
 TP_KINDS = (("mamba2-370m", 2, 0), ("recurrentgemma-9b", 3, 0),
             ("whisper-medium", 2, 2))
+# phase 19d: pure_dp at full width, (arch, layers kept); the inputs,
+# session and steps as phase 19b's
+PURE_DP_CELLS = ((TP_ARCH, TP_LAYERS), ("mamba2-370m", 2))
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 x
@@ -966,9 +981,9 @@ def phase_round_breakdown(wl):
 
 
 def phase_pipelined_serving(wls):
-    """Phase 3b: the stream's 4,096 transactions admitted one by one to an
-    ingress pool, then served from its arrival journal twice on the card:
-    depth 0 and depth 2 at budget K.
+    """Phase 3b: the stream's N_BATCHES * K transactions admitted one by
+    one to an ingress pool, then served from its arrival journal twice on
+    the card: depth 0 and depth 2 at budget K.
     Held to one another, to the numpy oracle in the pool's drain order,
     and measured: the speculation's own steps timed on a stale store."""
     import torch
@@ -1168,7 +1183,7 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def engine_runs(wl, device, k=K):
+def engine_runs(wl, device, k=ENGINES_K):
     """Every engine on the first ``k`` rows of ``wl`` from a fresh store
     on ``device``: name -> (store, trace, seconds, conflict launches)."""
     from repro_torch.core.destm import destm_execute
@@ -1223,7 +1238,7 @@ def torch_tensor(a, device):
 
 
 def phase_engines(wl, cpu):
-    """Every engine at the main path's size on the card: PoGL and DeSTM
+    """Every engine on ENGINES_K rows of ``wl`` on the card: PoGL and DeSTM
     (both walks) held to the numpy serial oracle and to PCC, OCC to its
     CPU run per arrival with a nondeterminism witness and a replay
     through PCC, every engine to its CPU run (``cpu_engines``, from the
@@ -1236,17 +1251,19 @@ def phase_engines(wl, cpu):
     from repro_torch.core.sequencer import ReplaySequencer
     from repro_torch.core.tstore import fingerprint, make_store
 
+    k = ENGINES_K
     card, seq, arrival = engine_runs(wl, "cuda")
+    batch, lanes = wl.batch.rows(torch.arange(k)), wl.lanes[:k]
     fps = {name: fingerprint(r[0]) for name, r in card.items()}
     values, versions, gv = oracle.serial_execute(
         np.zeros((N_OBJECTS, 1), np.int32), np.zeros(N_OBJECTS, np.int32),
-        0, [convert.batch_to_numpy(wl.batch)], [seq])
+        0, [convert.batch_to_numpy(batch)], [seq])
     for name in ("pcc", "pogl", "destm", "destm serial walk"):
         store = convert.store_to_numpy(card[name][0])
         assert np.array_equal(store["values"], values), f"{name} values"
         assert np.array_equal(store["versions"], versions), \
             f"{name} versions"
-        assert int(store["gv"]) == gv == K, f"{name} gv"
+        assert int(store["gv"]) == gv == k, f"{name} gv"
         assert fps[name] == fps["pcc"], name
     tw, ts = card["destm"][1], card["destm serial walk"][1]
     for f in TRACE_FIELDS:
@@ -1261,9 +1278,9 @@ def phase_engines(wl, cpu):
         log("  occ: both arrivals give one fingerprint on this batch")
         occ_witness()
     order = np.argsort(occ_rand[1].commit_pos.cpu().numpy(), kind="stable")
-    rseq = ReplaySequencer(order.tolist()).order_for(wl.lanes.tolist())
+    rseq = ReplaySequencer(order.tolist()).order_for(lanes.tolist())
     replay, _ = pcc_execute(make_store(N_OBJECTS, device="cuda"),
-                            wl.batch.to("cuda"),
+                            batch.to("cuda"),
                             torch_tensor(np.asarray(rseq, np.int32), "cuda"))
     assert torch.equal(replay.values, occ_rand[0].values), \
         "OCC's commit order replayed through PCC differs"
@@ -1283,27 +1300,27 @@ def phase_engines(wl, cpu):
             assert np.array_equal(gt[f], ct[f]), f"{name} trace.{f}"
 
     for name, (store, trace, s, _, shapes) in card.items():
-        log(f"  {name:20s} {s * 1e3:10.1f} ms/batch {K / s:8.1f} txns/s  "
+        log(f"  {name:20s} {s * 1e3:10.1f} ms/batch {k / s:8.1f} txns/s  "
             f"rounds {int(trace.rounds):5d}  wave_trips "
             f"{int(trace.wave_trips):5d}  retry_waves "
             f"{int(trace.retry_waves):5d}  barrier_ops "
             f"{int(trace.barrier_ops):6d}  launches {launches[name]}  "
             f"fp {fps[name]:#010x}")
         log(f"  {'':20s} by shape: {shapes or 'none'}")
-    log(f"engines: K={K}, O={N_OBJECTS}, {N_LANES} lanes, one batch each: "
+    log(f"engines: K={k}, O={N_OBJECTS}, {N_LANES} lanes, one batch each: "
         f"PoGL, DeSTM (wave) and DeSTM (serial walk) == numpy serial oracle "
         f"== PCC; DeSTM wave == serial walk but for the wave fields "
         f"({int(tw.retry_waves)} <= {int(ts.retry_waves)} waves); OCC "
         f"fingerprints {fps['occ']:#010x} (sequence order) and "
         f"{fps['occ random arrival']:#010x} (random arrival), replayed "
-        f"through PCC; every engine == its CPU run at K={K} "
+        f"through PCC; every engine == its CPU run at K={k} "
         f"({t_cpu:.1f} s in the CPU referee) in every trace field")
     return launches
 
 
 def pipelined_stream(wls):
     """Phase 10b's stream: the first ENGINES_CPU_K rows of each of the
-    main path's first three batches, (batches, lanes)."""
+    stream's first three batches, (batches, lanes)."""
     import torch
     k = ENGINES_CPU_K
     return ([w.batch.rows(torch.arange(k)) for w in wls[:3]],
@@ -1328,7 +1345,7 @@ def engine_stream_run(engine, depth, device, batches, lanes):
 
 def phase_engines_pipelined(wls, cpu):
     """Phase 10b: each engine's stream of the first ENGINES_CPU_K rows of
-    the main path's first three batches through ``run_stream`` at depth
+    the stream's first three batches through ``run_stream`` at depth
     2 on the card, held to its serial run on the card (every field but
     ``spec_*``) and to the pipelined run on the CPU (every field; from
     the CPU referee, ``cpu_engines_pipelined``); the card's two runs
@@ -2642,7 +2659,7 @@ def phase_recovery(served, sharded):
               budgets=(K,), device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
         victim = os.path.join(tmp, "victim")
-        plan = FaultPlan(kill_batch=2, kill_phase="execute", action="raise")
+        plan = FaultPlan(kill_batch=1, kill_phase="execute", action="raise")
         t0 = time.perf_counter()
         try:
             run_replica(journal, directory=victim, snapshot_every=1,
@@ -2657,7 +2674,7 @@ def phase_recovery(served, sharded):
             journal, directory=victim, snapshot_every=1, resume=True,
             record_fingerprints=False, **kw))
         s = rec.session
-        assert s.restored_from == 1 and s.recovery_batches == 2
+        assert s.restored_from == 0 and s.recovery_batches == N_BATCHES - 1
         assert s.fingerprint() == served["fingerprint"]
         assert s.replay_log() == served["replay_log"]
         for f in ("values", "versions"):
@@ -2672,7 +2689,8 @@ def phase_recovery(served, sharded):
         _, t_load = timed(lambda: load_snapshot(path))
         nbytes = sum(os.path.getsize(os.path.join(path, f))
                      for f in os.listdir(path))
-        log(f"  resumed from snapshot 1 and re-drained {s.recovery_batches} "
+        log(f"  resumed from snapshot {s.restored_from} and re-drained "
+            f"{s.recovery_batches} "
             f"batches in {t_rec:.1f} s; store, replay log and the "
             f"{len(digests)} trace digests bitwise equal to phase 3b's "
             f"depth-0 serve; one snapshot ({nbytes} bytes on disk) written "
@@ -3593,9 +3611,10 @@ def phase_store_mesh(wls, dense) -> dict[str, int]:
     return launches
 
 
-def tp_against_dense(cfg, prof) -> dict:
-    """Phases 19b and 19c for ``cfg`` (full width, depth cut): on
-    ``prof``'s mesh against ``SMOKE``, ``lm.forward``'s logits and
+def tp_against_dense(cfg, prof, label="tensor parallel") -> dict:
+    """Phases 19b, 19c and 19d's ``pure_dp`` for ``cfg`` (full width,
+    depth cut): on ``prof``'s mesh (``label`` in the times) against
+    ``SMOKE``, ``lm.forward``'s logits and
     ``lm.prefill``'s logits and cache on TP_ROWS x TP_SEQ bf16 tokens
     (after ``lm.encode`` of seeded stub frames on the same profile for an
     encoder-decoder), one ``lm.decode_step`` from that cache (its logits
@@ -3622,7 +3641,7 @@ def tp_against_dense(cfg, prof) -> dict:
     same = lambda a, b: len(a) == len(b) and all(
         x.dtype == y.dtype and x.shape == y.shape
         and torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
-    profiles = {"tensor parallel": prof, "dense": SMOKE}
+    profiles = {label: prof, "dense": SMOKE}
     times = {}
 
     # a. forward and prefill, bf16 weights
@@ -3711,8 +3730,7 @@ def tp_against_dense(cfg, prof) -> dict:
         del new
     adamw_launches = fused_adamw.LAUNCHES["fused_adamw"]
     n_leaves = len(leaves(state.params))
-    assert trained["tensor parallel"] == trained["dense"], \
-        "the train steps differ"
+    assert trained[label] == trained["dense"], "the train steps differ"
     assert adamw_launches == 2 * n_leaves, (adamw_launches, n_leaves)
     assert np.isfinite(np.int32(trained["dense"][0]).view(np.float32))
     for k, step in steps.items():
@@ -3794,6 +3812,126 @@ def phase_tp_kinds(mesh) -> tuple[int, int]:
         log(f"  {cfg.name} tensor parallelism ms (median of {EP_TIMED} "
             f"after one, {smi_line()}): " + "; ".join(
                 f"{k} {v:.3f}" for k, v in got["times"].items()))
+    return adamw, kv
+
+
+def adafactor_against_dense(cfg, prof, label, rows, seq) -> dict:
+    """Phase 19d's Adafactor step for ``cfg``: one pot step
+    (TRAIN_MICRO microbatches of ``rows`` x ``seq`` tokens, float32
+    masters) on ``prof``'s mesh and on ``SMOKE``, the loss and every
+    parameter and statistic leaf bitwise equal; then the medians of
+    EP_TIMED steps of each after a warm-up (``label`` and "dense" in the
+    times)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.runtime.shardings import SMOKE
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                            cfg, dtype=torch.float32)
+    local = lm.local_params(params, cfg, prof)
+    assert all(a is b for a, b in zip(leaves(local), leaves(params),
+                                      strict=True)), "a world-1 shard is cut"
+    state = init_state(local, "adafactor", cfg=cfg)
+    batch = family_batch(cfg, seq, rows, 0)
+    steps = {k: make_train_step(cfg, prof=pr, optimizer="adafactor",
+                                mode="pot", n_microbatches=TRAIN_MICRO,
+                                lr=TRAIN_LR)
+             for k, pr in ((label, prof), ("dense", SMOKE))}
+    trained = {}
+    for k, step in steps.items():
+        new, loss = step(state, batch)
+        trained[k] = (loss.view(torch.int32).item(),
+                      tree_digest([new.params, new.opt]))
+        del new
+    assert trained[label] == trained["dense"], "the Adafactor steps differ"
+    assert np.isfinite(np.int32(trained["dense"][0]).view(np.float32))
+    times = {f"adafactor step {k}": median_ms(lambda: step(state, batch))
+             for k, step in steps.items()}
+    counts = dict(n_leaves=len(leaves(state.params)),
+                  n_stats=len(leaves(state.opt["stats"])))
+    del state, steps, params, local
+    torch.cuda.empty_cache()
+    return dict(times=times, **counts)
+
+
+def phase_mesh_layout(mesh) -> tuple[int, int]:
+    """Phase 19d: the last of the mesh layout at world 1 on phase 18a's
+    mesh, each check bitwise against the dense path: an Adafactor pot
+    step on a mesh (19b's stablelm cell and 18c's deepseek cell), the
+    ``pure_dp`` profile through every entry point (19b's checks,
+    :func:`tp_against_dense`, and an Adafactor step) on stablelm-12b
+    and mamba2-370m, and the refusal of a MoE config under ``pure_dp``.
+    Returns the fused AdamW and kv_commit kernels' launches of the
+    compared train steps and sessions."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, moe
+    from repro_torch.runtime.shardings import Profile
+
+    grid = Profile(mesh=mesh)
+    pure = Profile(mesh=mesh, pure_dp=True)
+    arch, n_layers, rows, seq = DRYRUN_CELLS[0]
+    cells = [(TP_ARCH, TP_LAYERS, TP_ROWS, TP_SEQ), (arch, n_layers, rows,
+                                                     seq)]
+    for arch, n_layers, rows, seq in cells:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        got = adafactor_against_dense(cfg, grid, "mesh", rows, seq)
+        log(f"adafactor on a mesh: world-1 NCCL group, (1, 1) (data, "
+            f"model) mesh; {cfg.name} cut to {cfg.n_layers} layers (widths "
+            f"untouched), pot step ({TRAIN_MICRO} microbatches of "
+            f"{rows // TRAIN_MICRO} x {seq} tokens, {got['n_leaves']} "
+            f"float32 leaves, {got['n_stats']} statistic tensors) loss and "
+            f"every "
+            f"parameter and statistic leaf bitwise equal to the dense path "
+            f"({time.perf_counter() - t0:.1f} s)")
+        log(f"  {cfg.name} adafactor on a mesh ms (median of {EP_TIMED} "
+            f"after one, {smi_line()}): " + "; ".join(
+                f"{k} {v:.3f}" for k, v in got["times"].items()))
+    adamw = kv = 0
+    for arch, n_layers in PURE_DP_CELLS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        got = tp_against_dense(cfg, pure, "pure_dp")
+        got["times"].update(adafactor_against_dense(
+            cfg, pure, "pure_dp", TP_ROWS, TP_SEQ)["times"])
+        adamw += got["adamw_launches"]
+        kv += got["kv_launches"]
+        log(f"pure_dp of {cfg.name} cut to {cfg.n_layers} layers, widths "
+            f"untouched, world-1 NCCL group, (1, 1) (data, model) mesh: "
+            f"forward, prefill and a decode step from its cache on "
+            f"{TP_ROWS} x {TP_SEQ} bf16 tokens bitwise equal to the dense "
+            f"path; Session ({EP_SLOTS} slots, {EP_PROMPT}-token prompts, "
+            f"{EP_STEPS} steps) tokens and fingerprint "
+            f"{got['fingerprint']:#010x} bitwise equal, kv_commit launches "
+            f"{got['kv_launches']}; pot steps ({TRAIN_MICRO} microbatches, "
+            f"{got['n_leaves']} float32 leaves), AdamW and Adafactor: loss "
+            f"and every parameter, moment and statistic leaf bitwise equal, "
+            f"fused_adamw launches {got['adamw_launches']} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        log(f"  {cfg.name} pure_dp ms (median of {EP_TIMED} after one, "
+            f"{smi_line()}): " + "; ".join(
+                f"{k} {v:.3f}" for k, v in got["times"].items()))
+    # a MoE config under pure_dp: its expert specs name the model axis
+    # twice, and the reference's shard_map fails on them
+    cfg = dataclasses.replace(get_config(DRYRUN_CELLS[0][0]), n_layers=1)
+    meta = lm.init_params(None, cfg, device="meta")
+    for call in (lambda: lm.local_params(meta, cfg, pure),
+                 lambda: moe.moe_apply(
+                     meta["layers"][0]["moe"],
+                     torch.zeros((TP_ROWS, 8, cfg.d_model), device="cuda"),
+                     cfg, pure)):
+        try:
+            call()
+        except ValueError as e:
+            assert "twice" in str(e), e
+        else:
+            raise AssertionError(f"{cfg.name} under pure_dp was not refused")
+    log(f"pure_dp of {cfg.name}: lm.local_params and the MoE layer refuse "
+        f"it (its expert specs {pure.experts_in()} name the model axis "
+        f"twice)")
     return adamw, kv
 
 
@@ -3975,16 +4113,18 @@ def run_phases(cpu, t_start) -> int:
             launches[name] += n
         adamw_tp, kv_tp = phase_tp(mesh)
         adamw_kinds, kv_kinds = phase_tp_kinds(mesh)
+        adamw_layout, kv_layout = phase_mesh_layout(mesh)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    launches["fused_adamw"] += adamw_ep + adamw_tp + adamw_kinds
-    launches["kv_commit"] += kv_ep + kv_tp + kv_kinds
+    launches["fused_adamw"] += adamw_ep + adamw_tp + adamw_kinds + \
+        adamw_layout
+    launches["kv_commit"] += kv_ep + kv_tp + kv_kinds + kv_layout
     launches["fused_adamw"] += phase_dryrun()
     # phase 17b's CPU steps run in a thread beside phases 10 and 10b
     adafactor = phase_adafactor_card()
     phase_engines(stream[0], cpu["cpu_engines"].get())
-    phase_engines_pipelined(stream, cpu["cpu_engines_pipelined"].get())
+    phase_engines_pipelined(wls, cpu["cpu_engines_pipelined"].get())
     phase_adafactor_held(adafactor)
 
     summary = [dict(name=name, route="cuda", source=SOURCES[name],

@@ -38,8 +38,8 @@ from repro_torch.models import lm
 from repro_torch.models.blocks import C
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adafactor import adafactor_init
-from repro_torch.runtime.shardings import SMOKE, Profile
-from repro_torch.train.train_step import TrainState
+from repro_torch.runtime.shardings import SMOKE, Profile, local_tree
+from repro_torch.train.train_step import TrainState, opt_specs
 from repro_torch.tree import tree_map
 
 
@@ -158,7 +158,7 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     every float32 parameter at each use, so no bit changes; float32
     keeps the training path's masters.  Under a ``prof`` with a mesh the
     tree is this rank's (``lm.local_params``): every leaf cut to the
-    rank's shard by its spec but ``embed`` and ``head``, whole."""
+    rank's shard by its spec."""
     def tensor(a):
         return torch.from_numpy(np.array(a, np.float32)).to(
             device=device, dtype=dtype)
@@ -261,21 +261,26 @@ def train_state_from_numpy(tree, cfg: ModelConfig, device="cuda",
     another shape, raises ``ValueError``);
     ``opt["step"]``, ``gv`` and ``step`` as 0-d int32 tensors.  Under a
     ``prof`` with a mesh, a rank's state: the parameters and moments cut
-    as :func:`lm_params_from_numpy` cuts them (AdamW only, as
-    ``make_train_step`` on a mesh)."""
-    f32 = lambda t: lm_params_from_numpy(t, cfg, device, torch.float32,
-                                         prof)
+    as :func:`lm_params_from_numpy` cuts them, each Adafactor statistic
+    by its spec (``train_step.opt_specs``: a leaf's ``vr`` by the leaf's
+    spec without its last entry, its ``vc`` without its second last)."""
+    f32 = lambda t: lm_params_from_numpy(t, cfg, device, torch.float32)
+    cut = lambda t: lm.local_params(t, cfg, prof)
     i32 = lambda a: torch.tensor(int(np.asarray(a)), dtype=torch.int32,
                                  device=device)
     opt = _field_tree(tree, "opt")
     params = f32(_field_tree(tree, "params"))
     if "stats" in opt:
-        if prof.enabled and prof.mesh is not None:
-            raise ValueError("an Adafactor state does not cut to a rank's")
         like = adafactor_init(params, len(cfg.pattern),
                               len(cfg.tail_pattern))["stats"]
-        state = {"stats": _tensors_like(like, opt["stats"], device)}
+        stats = _tensors_like(like, opt["stats"], device)
+        if lm.on_mesh(prof):
+            specs = opt_specs(lm.param_specs(cfg, prof), params,
+                              "adafactor", cfg)["stats"]
+            stats = local_tree(stats, specs, prof.mesh)
+        state = {"stats": stats}
     else:
-        state = {"m": f32(opt["m"]), "v": f32(opt["v"])}
-    return TrainState(params=params, opt=dict(state, step=i32(opt["step"])),
+        state = {"m": cut(f32(opt["m"])), "v": cut(f32(opt["v"]))}
+    return TrainState(params=cut(params),
+                      opt=dict(state, step=i32(opt["step"])),
                       gv=i32(_field(tree, "gv")), step=i32(_field(tree, "step")))

@@ -24,10 +24,10 @@ and reads the compiler's cost and memory analyses; here:
   over the cards.  ``roofline_model.modeled_memory_bytes`` stays the
   primary memory term.
 * **Memory fit** -- per card, from the spec trees at the mesh
-  (``lm.param_specs``, ``lm.cache_specs``, :func:`opt_specs`; each leaf
-  takes its largest local shard): parameters P, the float32 gradient
-  sum G (the step's own gradients, Gm, in the parameters' dtype), the
-  optimizer state O and the activations A saved for backward
+  (``lm.param_specs``, ``lm.cache_specs``, ``train_step.opt_specs``;
+  each leaf takes its largest local shard): parameters P, the float32
+  gradient sum G (the step's own gradients, Gm, in the parameters'
+  dtype), the optimizer state O and the activations A saved for backward
   (``torch.autograd.graph.saved_tensors_hooks`` on ``meta``; with remat
   the layers' inputs and what lies outside the layers), divided over the
   cards the batch and sequence dims are spread over.  The port's step
@@ -87,7 +87,8 @@ from repro_torch.launch.mesh import NVLINK_DOMAIN, production_mesh_shape
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.shardings import P, Profile, local_shape, norm_spec
-from repro_torch.train.train_step import _value_and_grad, init_state, loss_fn
+from repro_torch.train.train_step import (_value_and_grad, init_state,
+                                          loss_fn, opt_specs)
 from repro_torch.tree import flatten_up_to, leaves
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -99,60 +100,6 @@ F32 = torch.float32
 
 
 # --------------------------------------------------------------- helpers
-def _zip_map(fn, spec, like):
-    """``fn(spec_leaf, like_subtree)`` over a spec tree, keeping its
-    structure; ``like`` holds the spec tree's structure (dicts by key)."""
-    if isinstance(spec, P):
-        return fn(spec, like)
-    if isinstance(spec, dict):
-        return {k: _zip_map(fn, s, like[k]) for k, s in spec.items()}
-    return [_zip_map(fn, s, x) for s, x in zip(spec, like, strict=True)]
-
-
-def _lead(spec_tree):
-    """Every spec of the tree with a leading ``None``: the stacked group
-    axis of a pattern slot."""
-    return _zip_map(lambda s, _: P(None, *s), spec_tree, spec_tree)
-
-
-def opt_specs(pspecs, params, optimizer: str, cfg: ModelConfig) -> dict:
-    """The spec tree of the optimizer state (``train.init_state``).
-    AdamW: the moments by the parameters' specs.  Adafactor: the
-    statistics in their stacked layout (``optim/adafactor.py``), each
-    pattern slot's specs with the group axis in front, a factored leaf's
-    ``vr`` and ``vc`` its spec without the last and without the second
-    last dim, as the reference's."""
-    if optimizer == "adamw":
-        return {"m": pspecs, "v": pspecs, "step": P()}
-
-    def leaf(spec, ndim):
-        t = norm_spec(spec, ndim)
-        if ndim >= 2:
-            return {"vr": P(*t[:-1]), "vc": P(*(t[:-2] + t[-1:]))}
-        return {"v": spec}
-
-    def plain(spec_tree, like, stacked):
-        return _zip_map(lambda s, p: leaf(s, p.ndim + stacked), spec_tree,
-                        like)
-
-    stats = {}
-    for k, s in pspecs.items():
-        if k == "layers":
-            slots = len(cfg.pattern)
-            n_grouped = len(s) - len(cfg.tail_pattern)
-            stats[k] = {str(i): plain(_lead(s[i]), params[k][i], 1)
-                        for i in range(slots)}
-            if cfg.tail_pattern:
-                stats["tail"] = {str(j): plain(s[n_grouped + j],
-                                               params[k][n_grouped + j], 0)
-                                 for j in range(len(cfg.tail_pattern))}
-        elif k == "enc_layers":
-            stats[k] = plain(_lead(s[0]), params[k][0], 1)
-        else:
-            stats[k] = leaf(s, params[k].ndim)
-    return {"stats": stats, "step": P()}
-
-
 def profile_for(sizes: dict, shape_spec) -> Profile:
     """The reference's profile of a mesh of ``sizes`` (axis -> size)."""
     data_axes = ("pod", "data") if "pod" in sizes else ("data",)

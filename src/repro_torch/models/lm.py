@@ -42,9 +42,13 @@ constraints lay them out (``shardings.Place``):
   and ``mlp_apply`` with the rank's place): the sequence gathered at the
   entry (``act_gathered``), the rank's heads or hidden columns, the
   partial outputs reduce-scattered into the block;
-- the logits are computed by vocab block over the model axis
-  (``act_btv``) and gathered whole on every rank, where the loss is
-  computed whole;
+- the embedding is looked up by vocab block: each rank looks up its
+  batch rows' tokens that fall in its block of ``embed``, the other
+  rows zero, and the ranks' rows are summed over the model axis into
+  its block of the residual stream (one nonzero row a token, so the sum
+  is exact); the logits are computed by vocab block over the model axis
+  (``act_btv``) from the rank's block of ``head`` and gathered whole on
+  every rank, where the loss is computed whole;
 - the mamba2 mixer splits its heads over the model axis
   (``models/ssm.py``), the RG-LRU mixer its width (``models/rglru.py``)
   and cross-attention its heads, as self-attention does, reading the
@@ -54,8 +58,16 @@ constraints lay them out (``shardings.Place``):
   rank's block;
 - a rank holds each parameter and decode-cache leaf as its spec cuts it
   (:func:`local_params` by :func:`param_specs`, :func:`local_cache` by
-  :func:`cache_specs`), the one layout the dry run reads; ``embed`` and
-  ``head`` stay whole, their vocab block cut at use.
+  :func:`cache_specs`), the one layout the dry run reads, ``embed`` and
+  ``head`` by vocab block.
+
+Under ``pure_dp`` (the model axis as one more data axis) the batch
+splits over every rank and nothing is tensor-parallel: each weight's
+FSDP shard is gathered whole at use over the data axes and the model
+axis, ``embed`` and ``head`` whole over the model axis, and every
+sublayer runs its dense body on the rank's rows.  A MoE layer is
+refused there: its expert specs name the model axis twice, as the
+reference's do.
 
 Every leaf a rank holds whole gets its whole gradient, summed over the
 ranks whose tokens used it, and a shard its shard's, all through the
@@ -199,20 +211,15 @@ def on_mesh(prof: Profile) -> bool:
     return prof.enabled and prof.mesh is not None
 
 
-WHOLE = ("embed", "head")      # held whole on a mesh, cut at use
-
-
 def local_params(params, cfg: ModelConfig, prof: Profile) -> dict:
     """The parameter tree (or a tree of its shape, an AdamW moment) a
     rank holds under ``prof``: each leaf its shard by
     :func:`param_specs` (``shardings.local_shard``; the tensor itself
-    where its spec cuts nothing), but ``embed`` and ``head``, whole;
-    ``params`` itself where the profile has no mesh."""
+    where its spec cuts nothing); ``params`` itself where the profile
+    has no mesh."""
     if not on_mesh(prof):
         return params
-    specs = param_specs(cfg, prof)
-    return {k: t if k in WHOLE else local_tree(t, specs[k], prof.mesh)
-            for k, t in params.items()}
+    return local_tree(params, param_specs(cfg, prof), prof.mesh)
 
 
 def params_to(params, device, dtype=None):
@@ -364,30 +371,57 @@ def place_len(tokens, prefix_embeds) -> int:
                               else prefix_embeds.shape[1])
 
 
+def _vocab_leaf(params, name: str, cfg: ModelConfig, place: Place):
+    """``embed`` (V_b, D) or the head (D, V_b; ``embed`` transposed where
+    the embeddings are tied) as the rank computes with it
+    (``Place.vocab_block``): its vocab block, whose first id is
+    ``place.m * V_b``."""
+    key = "embed" if name == "embed" or cfg.tie_embeddings else "head"
+    dim = 0 if key == "embed" else 1
+    w = params[key]
+    if w.shape[dim] * place.n_vocab != cfg.padded_vocab:
+        raise ValueError(f"{key} of {w.shape[dim]} vocab entries where the "
+                         f"rank holds {cfg.padded_vocab // place.n_vocab}: "
+                         f"carry the weights across with lm.local_params")
+    w = place.vocab_block(w, dim)
+    return w.T if key != name else w
+
+
 def _logits(params, x, cfg: ModelConfig, place: Place = ALONE):
     """The final norm and the head over x (B, S, D).  On a mesh x is the
     rank's block (B_b, S_b, D): the rank computes its vocab block of the
     whole sequence's logits, gathered into the whole (B, S, V) on every
     rank."""
-    if cfg.padded_vocab % place.n_model:
-        raise ValueError(f"a vocabulary of {cfg.padded_vocab} does not split "
-                         f"over the model axis of {place.n_model} ranks")
     scale = place.shared(params["final_norm"], model=place.seq_split)
     x = place.enter(rmsnorm(x, scale.to(x.dtype), cfg.norm_eps))
-    head = place.shared(params["embed"].T if cfg.tie_embeddings
-                        else params["head"], model=True)
-    head = block(head, 1, place.m, place.n_model)
+    head = _vocab_leaf(params, "head", cfg, place)
     return place.gather_logits(x @ head.to(x.dtype))
 
 
-def _embed(params, tokens, prefix_embeds, dtype, place: Place):
+def _lookup(params, tokens, cfg: ModelConfig, dtype, place: Place):
+    """The embedding rows of the rank's batch rows of ``tokens`` that fall
+    in its vocab block, the other rows zero (masked: no index leaves the
+    block)."""
+    table = _vocab_leaf(params, "embed", cfg, place).to(dtype)
+    ids = place.batch_block(tokens) - place.m * table.shape[0]
+    mine = (ids >= 0) & (ids < table.shape[0])
+    rows = F.embedding(torch.where(mine, ids, 0), table)
+    return torch.where(mine[..., None], rows, 0)
+
+
+def _embed(params, tokens, prefix_embeds, cfg: ModelConfig, dtype,
+           place: Place):
     """The embeddings of ``tokens`` (after ``prefix_embeds``): the rank's
-    block of them."""
-    embed = place.shared(params["embed"], model=place.seq_split)
-    x = F.embedding(tokens, embed.to(dtype))
+    block of them.  The ranks' looked-up rows are summed over the model
+    axis into the block (``Place.leave``, whose adjoint gathers the
+    sequence's cotangent); the prefix enters the sum on the model
+    group's first rank only, so it is added to zeros."""
+    x = _lookup(params, tokens, cfg, dtype, place)
     if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
-    return place.take_block(x)
+        pre = place.batch_block(prefix_embeds).to(dtype)
+        x = torch.cat([pre if place.m == 0 else torch.zeros_like(pre), x],
+                      dim=1)
+    return place.leave(x)
 
 
 def encode(params, frames, cfg: ModelConfig, prof: Profile = SMOKE, *,
@@ -433,7 +467,7 @@ def forward(params, tokens, cfg: ModelConfig, prof: Profile = SMOKE, *,
     :func:`repro_torch.models.blocks.attend_full`."""
     b, s = tokens.shape[0], place_len(tokens, prefix_embeds)
     place = place_of(prof, (b, s))
-    x = _embed(params, tokens, prefix_embeds, C, place)
+    x = _embed(params, tokens, prefix_embeds, cfg, C, place)
     positions = place.batch_block(_positions(b, s, x.device))
     x = trunk(params, x, cfg, prof, positions=positions,
               enc=_enc_rows(enc, b, place),
@@ -452,7 +486,8 @@ def prefill(params, tokens, cfg: ModelConfig, prof: Profile = SMOKE, *,
     layer the K/V of ``enc``."""
     b, s = tokens.shape[0], place_len(tokens, prefix_embeds)
     place = place_of(prof, (b, s))
-    x = _embed(params, tokens, prefix_embeds, params["embed"].dtype, place)
+    x = _embed(params, tokens, prefix_embeds, cfg, params["embed"].dtype,
+               place)
     positions = place.batch_block(_positions(b, s, x.device))
     x, cache = trunk(params, x, cfg, prof, positions=positions,
                      enc=_enc_rows(enc, b, place),
@@ -600,7 +635,8 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
     ``cache`` is the rank's shard (:func:`init_cache` with ``prof``) and
     the logits are whole on every rank."""
     place = place_of(prof, tokens.shape)
-    x = params["embed"][place.batch_block(tokens)]           # (B, 1, D)
+    x = place.leave(_lookup(params, tokens, cfg, params["embed"].dtype,
+                            place))                        # (B, 1, D)
     pos = place.batch_block(pos)
     for p, kind, c in zip(params["layers"], layer_kinds(cfg), cache,
                           strict=True):

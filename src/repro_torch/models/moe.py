@@ -51,7 +51,9 @@ Two dispatch paths, chosen as the reference chooses them:
   tokens (a decode step's) runs forward only.  A rank holds each leaf
   as :func:`moe_specs` cuts it (``lm.local_params``): its experts'
   shards, the shared experts' and dense residual's MLP shards, the
-  router whole.
+  router whole.  A ``pure_dp`` profile is refused: its expert specs
+  name the model axis twice, and the reference's ``shard_map`` fails on
+  them.
 """
 
 from __future__ import annotations
@@ -213,6 +215,11 @@ class _ExpertMesh(Place):
     reference's ``shard_map`` refuses."""
 
     def __init__(self, cfg: ModelConfig, prof: Profile, shape):
+        if prof.pure_dp:
+            # the reference's shard_map fails on these specs too
+            raise ValueError(f"under pure_dp the expert specs "
+                             f"{prof.experts_in()} name the model axis "
+                             f"{prof.model_axis!r} twice")
         super().__init__(prof, shape, seq_shard=True)
         if cfg.n_experts % self.n_model:
             raise ValueError(f"{cfg.n_experts} experts do not split over "

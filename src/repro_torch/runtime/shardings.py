@@ -26,12 +26,16 @@ On a profile with a mesh the model runs SPMD, one process per card, and
 :class:`Place` is a rank's place on it for one call: its blocks of the
 batch (over the data axes) and of the sequence (over the model axis),
 and the collectives that cross ranks, each a :class:`Across` step with
-its adjoint.  Without a mesh the place is :data:`ALONE`, whose blocks
-are the whole and whose steps are the identity, so one body of each
-model function serves both (:func:`place_of`).  The reference's ``cons`` constraints become those steps
+its adjoint.  Under ``pure_dp`` the model axis is one more batch and
+FSDP axis and the tensor-parallel group is :data:`SOLO`, a group of one
+process, so every tensor-parallel step is the identity there.  Without
+a mesh the place is :data:`ALONE`, whose blocks are the whole and whose
+steps are the identity, so one body of each model function serves both
+(:func:`place_of`).  The reference's ``cons`` constraints become those
+steps
 (``models/lm.py``): the sequence gathered at each sublayer's entry and
 reduce-scattered at its exit (Megatron-SP), the ZeRO gather of FSDP
-shards, the logits gathered from their vocab blocks.
+shards, the embedding and the logits by vocab block.
 Every sum over ranks goes through the fixed-ring ``ordered_ring_reduce``
 (a reduce-scatter is that sum, then the rank's block), so a result is
 bitwise the same whatever the ranks' timing; ``cons`` itself stays the
@@ -300,10 +304,27 @@ class Across(torch.autograd.Function):
         return ctx.bwd(grad.contiguous()), None, None
 
 
+class _Solo:
+    """A group of one process that no collective needs: the
+    tensor-parallel group of a ``pure_dp`` place."""
+
+    def __repr__(self):
+        return "SOLO"
+
+
+SOLO = _Solo()
+
+
+def _ring(x, group):
+    """The fixed-ring sum of ``x`` over ``group`` (``ordered_ring_reduce``;
+    ``x`` itself over :data:`SOLO`)."""
+    return x if group is SOLO else ordered_ring_reduce(x, group)
+
+
 def gather(t, group, dim: int):
     """The group's tensors concatenated along ``dim`` in rank order
     (``t`` itself in a group of one)."""
-    n = dist.get_world_size(group)
+    n = 1 if group is SOLO else dist.get_world_size(group)
     if n == 1:
         return t
     t = t.contiguous()
@@ -324,27 +345,42 @@ def _same(t):
 
 class Place:
     """One rank's place on ``prof``'s mesh for a call over an input of
-    ``shape`` (B, S, ...): its model group and coordinate, the data
-    axes' groups (mesh order, major first) with its flat coordinate over
-    them, the batch's blocks over the axes of ``prof.da`` and whether
-    the sequence splits over the model axis (``seq_split``: it divides
-    it, and ``seq_shard`` asks for it).  Refuses a mesh whose dims are
-    not the profile's data axes and model axis, and ``pure_dp``."""
+    ``shape`` (B, S, ...).
+
+    - ``model``, ``n_model``, ``m``: the tensor-parallel group, its size
+      and the rank's coordinate: the model axis's, or under ``pure_dp``
+      :data:`SOLO`, 1 and 0;
+    - ``vocab``, ``n_vocab``, ``v``: the model axis's, which cuts the
+      embedding and the head by vocab block under every profile;
+    - ``data`` (with ``n_data``, ``i_data``, the flat size and
+      coordinate): the groups of the axes FSDP cuts over, mesh order,
+      major first: the data axes, and under ``pure_dp`` the model axis
+      after them;
+    - ``batch`` (``n_batch``, ``i_batch``): those of ``prof.da``, which
+      cut the batch;
+    - ``seq_split``: whether the sequence splits over the model axis (it
+      divides it, ``seq_shard`` asks for it, and the profile is not
+      ``pure_dp``).
+
+    Refuses a mesh whose dims are not the profile's data axes and model
+    axis."""
 
     def __init__(self, prof: Profile, shape, *, seq_shard: bool | None = None):
         mesh = prof.mesh
         names = tuple(mesh.mesh_dim_names or ())
         want = tuple(prof.data_axes) + (prof.model_axis,)
-        if prof.pure_dp or names != want:
+        if names != want:
             raise ValueError(f"a model on a mesh takes a mesh of dims "
-                             f"{want} and a profile without pure_dp; got "
-                             f"{names}{' and pure_dp' * prof.pure_dp}")
+                             f"{want}; got {names}")
         self.prof = prof
         coord = mesh.get_coordinate()
         axis = lambda a: (mesh.get_group(a), mesh.size(names.index(a)),
                           coord[names.index(a)])
-        self.model, self.n_model, self.m = axis(prof.model_axis)
-        self.data = [axis(a) for a in prof.data_axes]
+        self.vocab, self.n_vocab, self.v = axis(prof.model_axis)
+        self.model, self.n_model, self.m = (
+            (SOLO, 1, 0) if prof.pure_dp else
+            (self.vocab, self.n_vocab, self.v))
+        self.data = [axis(a) for a in (want if prof.pure_dp else want[:-1])]
         self.n_data, self.i_data = self._flat(self.data)
         self.batch = [axis(a) for a in axis_names(prof.da)]
         self.n_batch, self.i_batch = self._flat(self.batch)
@@ -354,7 +390,8 @@ class Place:
                              f"axes {axis_names(prof.da)} of {self.n_batch} "
                              f"ranks")
         split = prof.seq_shard if seq_shard is None else seq_shard
-        self.seq_split = bool(split and s % self.n_model == 0
+        self.seq_split = bool(split and not prof.pure_dp
+                              and s % self.n_model == 0
                               and s >= self.n_model)
         self.shape = (b, s)
 
@@ -370,7 +407,7 @@ class Place:
         ``model``, the model group."""
         groups = [group for group, _, _ in self.batch]
         for group in ([self.model] if model else []) + groups:
-            g = ordered_ring_reduce(g, group)
+            g = _ring(g, group)
         return g
 
     # the rank's block of a (B, S, ...) tensor and its inverse
@@ -407,7 +444,7 @@ class Place:
         return gather(x, self.model, 1) if self.seq_split else x
 
     def _seq_sum(self, x):
-        x = ordered_ring_reduce(x, self.model)
+        x = _ring(x, self.model)
         if self.seq_split:
             x = block(x, 1, self.m, self.n_model).contiguous()
         return x
@@ -427,8 +464,8 @@ class Place:
         """The sum of the ranks' ``t`` over the model axis, the same on
         every rank (a statistic of a whole row that each rank holds a
         block of); its adjoint sums the cotangents likewise."""
-        ring = lambda x: ordered_ring_reduce(x, self.model)
-        return Across.apply(t, ring, ring)
+        total = lambda x: _ring(x, self.model)
+        return Across.apply(t, total, total)
 
     def gather_heads(self, t):
         """A column-parallel projection's blocks (..., F / n_model)
@@ -436,7 +473,7 @@ class Place:
         (grouped K/V heads that do not split over it)."""
         return Across.apply(
             t, lambda x: gather(x, self.model, -1),
-            lambda g: block(ordered_ring_reduce(g, self.model), -1, self.m,
+            lambda g: block(_ring(g, self.model), -1, self.m,
                             self.n_model).contiguous())
 
     def gather_logits(self, t):
@@ -455,28 +492,48 @@ class Place:
 
     # parameters
     def shared(self, w, model: bool):
-        """A leaf every rank holds whole, used on the rank's tokens: its
+        """A leaf used as the rank holds it, on the rank's tokens: its
         gradient summed over the batch's groups and, with ``model``, the
-        model group, so that every rank gets the whole gradient."""
+        tensor-parallel group, so that every rank gets the gradient of
+        what it holds."""
         return Across.apply(w, _same, lambda g: self._reduce(g, model))
 
     def zero(self, w, dim: int):
         """A tensor-parallel leaf as the rank uses it: its FSDP shard
-        (``prof.fsdp``: dim ``dim`` cut over the data axes) gathered over
-        the data axes (ZeRO), the gradient summed over the batch's groups
-        and cut back to the shard."""
+        (``prof.fsdp``: dim ``dim`` cut over the axes of ``data``)
+        gathered over them (ZeRO), the gradient summed over the batch's
+        groups and cut back to the shard."""
         if not (self.prof.fsdp and self.data):
             return self.shared(w, model=False)
+        return self._gathered(w, dim, self.data)
+
+    def _gathered(self, w, dim: int, axes):
+        """``w``'s blocks along ``dim`` over the groups of ``axes``
+        (major first) gathered whole; the gradient summed over the
+        batch's groups and cut back to the rank's block."""
+        n, i = self._flat(axes)
 
         def fwd(x):
-            for group, _, _ in reversed(self.data):
+            for group, _, _ in reversed(axes):
                 x = gather(x, group, dim)
             return x
 
         def bwd(g):
-            g = self._reduce(g, model=False)
-            return block(g, dim, self.i_data, self.n_data).contiguous()
+            return block(self._reduce(g, model=False), dim, i,
+                         n).contiguous()
         return Across.apply(w, fwd, bwd)
+
+    def vocab_block(self, w, dim: int):
+        """The embedding (``dim`` 0) or the head (``dim`` 1), held by
+        vocab block over the model axis, as the rank computes with it:
+        its block (vocab ids from ``m`` times the block's size), the
+        gradient summed over the batch's groups; under ``pure_dp``,
+        whose ranks hold other tokens of the batch, the whole leaf
+        gathered over the model axis (``m`` is 0), the gradient summed
+        and cut back to the block."""
+        if not self.prof.pure_dp:
+            return self.shared(w, model=False)
+        return self._gathered(w, dim, [(self.vocab, self.n_vocab, self.v)])
 
 
 def _as_is(x, *args, **kwargs):
@@ -489,9 +546,9 @@ class Alone(Place):
     autograd step added, so the model's calls on it are the dense ones at
     no cost."""
 
-    n_model = n_batch = n_data = 1
-    m = i_batch = i_data = 0
-    model = None
+    n_model = n_vocab = n_batch = n_data = 1
+    m = v = i_batch = i_data = 0
+    model = vocab = None
     data = batch = ()
     seq_split = False
 
@@ -500,7 +557,7 @@ class Alone(Place):
 
     batch_block = take_block = gather_blocks = whole_in = whole_out = \
         seq_gather = enter = leave = model_sum = gather_heads = \
-        gather_logits = shared = zero = staticmethod(_as_is)
+        gather_logits = shared = zero = vocab_block = staticmethod(_as_is)
 
 
 ALONE = Alone()

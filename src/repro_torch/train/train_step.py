@@ -25,16 +25,19 @@ Parameters are float32 master weights; the model casts them to bf16 at
 use.  A step returns ``(new_state, loss)`` and leaves the state it was
 given as it was.  The optimizer is AdamW or Adafactor.
 ``make_train_step`` takes the reference's profile (``prof``, ``SMOKE``
-by default) and hands it to the model.  On a mesh every rank holds its
-own shards of the state (``lm.local_params``: every leaf cut by its
-spec but the embedding and head, whole),
-runs the model SPMD on its block of the batch and sequence
-(``models/lm.py``) and computes the same loss from the logits gathered
-whole; the backward pass's ordered sums over ranks leave every whole
-leaf's gradient whole and equal on every rank and a shard's that of the
-shard, and each rank commits its own leaves with AdamW (one fused
-kernel a leaf on the card).  The reference's ``grad_specs`` pins have
-nothing to pin: each rank's gradients already have its leaves' shapes.
+by default) and hands it to the model.  On a mesh, ``pure_dp`` too,
+every rank holds its own shards of the state (``lm.local_params``:
+every leaf cut by its spec, the embedding and head by vocab block;
+:func:`opt_specs` gives the state's spec tree), runs the model SPMD on
+its block of the batch and sequence (``models/lm.py``) and computes the
+same loss from the logits gathered whole; the backward pass's ordered
+sums over ranks leave every whole leaf's gradient whole and equal on
+every rank and a shard's that of the shard, and each rank commits its
+own leaves: AdamW one fused kernel a leaf on the card, Adafactor with
+the whole leaf's statistics, its means summed over the ranks that
+share the leaf (``optim/adafactor.py``).  The reference's
+``grad_specs`` pins have nothing to pin: each rank's gradients already
+have its leaves' shapes.
 ``make_train_step`` and ``make_pot_dp_step`` train all
 ten architectures: every layer kind (``"attn"``, ``"local"``,
 ``"mamba"``, ``"rglru"``), dense and MoE MLPs, internvl2's ``patches``
@@ -55,7 +58,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim import (adafactor_init, adafactor_update, adamw_init,
                                adamw_update, ordered_ring_reduce)
 from repro_torch.optim.ordered_reduce import ring_position
-from repro_torch.runtime.shardings import SMOKE, Profile
+from repro_torch.runtime.shardings import SMOKE, P, Profile, norm_spec
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -72,13 +75,17 @@ def _unknown(optimizer) -> ValueError:
                       f"{optimizer!r}")
 
 
-def _optimizer(optimizer: str, lr, wd):
+def _optimizer(optimizer: str, lr, wd, cfg: ModelConfig,
+               prof: Profile = SMOKE):
     """The update function and its hyperparameters: Adafactor takes the
-    learning rate only, as in the reference."""
+    learning rate only, as in the reference, and the parameters' spec
+    tree with ``prof``'s mesh (none off a mesh: nothing is cut)."""
     if optimizer == "adamw":
         return partial(adamw_update, lr=lr, wd=wd)
     if optimizer == "adafactor":
-        return partial(adafactor_update, lr=lr)
+        return partial(adafactor_update, lr=lr,
+                       specs=lm.param_specs(cfg, prof),
+                       mesh=prof.mesh if lm.on_mesh(prof) else None)
     raise _unknown(optimizer)
 
 
@@ -99,6 +106,61 @@ def init_state(params, optimizer="adamw", *,
     zero = lambda: torch.zeros((), dtype=torch.int32,
                                device=opt["step"].device)
     return TrainState(params=params, opt=opt, gv=zero(), step=zero())
+
+
+def _zip_map(fn, spec, like):
+    """``fn(spec_leaf, like_subtree)`` over a spec tree, keeping its
+    structure; ``like`` holds the spec tree's structure (dicts by key)."""
+    if isinstance(spec, P):
+        return fn(spec, like)
+    if isinstance(spec, dict):
+        return {k: _zip_map(fn, s, like[k]) for k, s in spec.items()}
+    return [_zip_map(fn, s, x) for s, x in zip(spec, like, strict=True)]
+
+
+def _lead(spec_tree):
+    """Every spec of the tree with a leading ``None``: the stacked group
+    axis of a pattern slot."""
+    return _zip_map(lambda s, _: P(None, *s), spec_tree, spec_tree)
+
+
+def opt_specs(pspecs, params, optimizer: str, cfg: ModelConfig) -> dict:
+    """The spec tree of the optimizer state (:func:`init_state`) of
+    ``params`` laid out by ``pspecs`` (``lm.param_specs``).  AdamW: the
+    moments by the parameters' specs.  Adafactor: the statistics in
+    their stacked layout (``optim/adafactor.py``), each pattern slot's
+    specs with the group axis in front, a factored leaf's ``vr`` and
+    ``vc`` its spec without the last and without the second last dim,
+    as the reference's."""
+    if optimizer == "adamw":
+        return {"m": pspecs, "v": pspecs, "step": P()}
+
+    def leaf(spec, ndim):
+        t = norm_spec(spec, ndim)
+        if ndim >= 2:
+            return {"vr": P(*t[:-1]), "vc": P(*(t[:-2] + t[-1:]))}
+        return {"v": spec}
+
+    def plain(spec_tree, like, stacked):
+        return _zip_map(lambda s, p: leaf(s, p.ndim + stacked), spec_tree,
+                        like)
+
+    stats = {}
+    for k, s in pspecs.items():
+        if k == "layers":
+            slots = len(cfg.pattern)
+            n_grouped = len(s) - len(cfg.tail_pattern)
+            stats[k] = {str(i): plain(_lead(s[i]), params[k][i], 1)
+                        for i in range(slots)}
+            if cfg.tail_pattern:
+                stats["tail"] = {str(j): plain(s[n_grouped + j],
+                                               params[k][n_grouped + j], 0)
+                                 for j in range(len(cfg.tail_pattern))}
+        elif k == "enc_layers":
+            stats[k] = plain(_lead(s[0]), params[k][0], 1)
+        else:
+            stats[k] = leaf(s, params[k].ndim)
+    return {"stats": stats, "step": P()}
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, prof: Profile = SMOKE,
@@ -170,15 +232,11 @@ def make_train_step(cfg: ModelConfig, *, prof: Profile = SMOKE,
                     wd=0.01):
     """A train step ``step(state, batch) -> (state', loss)``.  mode:
     ``"baseline"`` | ``"pot"``.  With a mesh in ``prof`` the state is a
-    rank's (module docstring), ``batch`` the whole batch on every rank,
-    and the optimizer AdamW: Adafactor's factored statistics of a shard
-    would be the shard's, not the whole leaf's."""
-    upd = _optimizer(optimizer, lr, wd)
+    rank's (module docstring) and ``batch`` the whole batch on every
+    rank."""
+    upd = _optimizer(optimizer, lr, wd, cfg, prof)
     if mode not in ("baseline", "pot"):
         raise ValueError(f"mode must be 'baseline' or 'pot', got {mode!r}")
-    if optimizer != "adamw" and prof.enabled and prof.mesh is not None:
-        raise ValueError(f"a step on a mesh takes 'adamw', got "
-                         f"{optimizer!r}")
     loss = partial(loss_fn, cfg=cfg, prof=prof, chunk=chunk, remat=remat)
 
     def baseline_step(state: TrainState, batch):
@@ -216,7 +274,7 @@ def make_pot_dp_step(cfg: ModelConfig, group=None, *, optimizer="adamw",
     reduction, divided by the rank count, and every rank applies the
     same fast-mode commit, with ``gv`` and ``step`` + 1.  The weights are
     replicated."""
-    upd = _optimizer(optimizer, lr, wd)
+    upd = _optimizer(optimizer, lr, wd, cfg)
     n_shards, rank = ring_position(group)
     loss = partial(loss_fn, cfg=cfg, remat=remat)
 

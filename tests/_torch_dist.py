@@ -190,12 +190,12 @@ def mesh_worker(rank, world, init, out):
     dist.destroy_process_group()
 
 
-def _mesh_profile(shape):
+def _mesh_profile(shape, **kw):
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.runtime.shardings import Profile
     mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-    return mesh, Profile(mesh=mesh)
+    return mesh, Profile(mesh=mesh, **kw)
 
 
 def _f32_models():
@@ -269,13 +269,14 @@ def _moe_ep_model(case, cfg, prof) -> dict:
     return out
 
 
-def _moe_ep_train(case, cfg, prof, delayed: bool) -> dict:
+def _moe_ep_train(case, cfg, prof, delayed: bool,
+                  optimizer: str = "adamw") -> dict:
     from repro_torch import convert
     from repro_torch.train import make_train_step
     from repro_torch.tree import leaves
     state = convert.train_state_from_numpy(case["state"], cfg, "cpu", prof)
-    step = make_train_step(cfg, prof=prof, mode="pot", n_microbatches=2,
-                           lr=case["lr"])
+    step = make_train_step(cfg, prof=prof, optimizer=optimizer, mode="pot",
+                           n_microbatches=2, lr=case["lr"])
     grad = torch.autograd.grad
     if delayed:     # this rank joins each backward 0.2 s late
 
@@ -299,7 +300,6 @@ def _refusals(prof) -> dict:
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import moe
     from repro_torch.runtime.shardings import local_tree
-    from repro_torch.train import make_train_step
     cfg = get_smoke_config("deepseek-moe-16b")
     gen = torch.Generator().manual_seed(0)
     p = local_tree(moe.init_moe(gen, cfg, torch.float32),
@@ -316,8 +316,8 @@ def _refusals(prof) -> dict:
         "gradient": lambda: moe.moe_apply(p, x(4, 1, True), cfg, prof),
         "fsdp": lambda: moe.moe_apply(
             p, x(4, 8), cfg, dataclasses.replace(prof, fsdp=False)),
-        "adafactor": lambda: make_train_step(cfg, prof=prof,
-                                             optimizer="adafactor"),
+        "pure_dp": lambda: moe.moe_apply(
+            p, x(8, 8), cfg, dataclasses.replace(prof, pure_dp=True)),
     }
     out = {}
     for name, call in calls.items():
@@ -682,31 +682,65 @@ def _tp_model(case, cfg, prof, session: bool) -> dict:
     return out
 
 
+def _tp_tied(case, cfg, prof) -> dict:
+    """Tied embeddings (the head ``embed`` transposed; no config ties
+    them) from the reference's tied weights and states: ``lm.forward``'s
+    logits over the case's batch and a pot step of each optimizer (2
+    microbatches), "mesh" on the rank's shards and "dense" whole on the
+    rank."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.models import lm
+    from repro_torch.runtime.shardings import SMOKE
+    tied = case["tied"]
+    cfg = dataclasses.replace(cfg, tie_embeddings=True)
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    extra = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+    out = {}
+    for path, pr in (("mesh", prof), ("dense", SMOKE)):
+        params = convert.lm_params_from_numpy(tied["params"], cfg, "cpu",
+                                              torch.float32, pr)
+        with torch.no_grad():
+            logits = lm.forward(params, batch["tokens"], cfg, pr,
+                                **_model_kw(params, extra, cfg, pr))
+        out[path] = dict(logits=logits.numpy(), train={
+            opt: _moe_ep_train(dict(case, state=state), cfg, pr, False, opt)
+            for opt, state in tied["states"].items()})
+    return out
+
+
 def tp_worker(rank, world, init, inputs, out, parts):
     """The port's tensor- and sequence-parallel model on a
     (2, 4) ("data", "model") mesh of gloo ranks, in float32 (``C`` set in
-    the port's model modules), for each arch of the pickled ``inputs``
-    (the reference's numpy weights and the inputs, with an encoder's
-    frames or a patch prefix where the arch takes them): ``parts`` of
+    the port's model modules), under the profile keywords of the pickled
+    ``inputs`` (``pure_dp``: the model axis as data) for each of its
+    cases (the reference's numpy weights and the inputs, with an
+    encoder's frames or a patch prefix where the arch takes them):
+    ``parts`` of
     "layer" (the first layer's output and gradients, its input whole on
     every rank), "model" (``lm.forward``, ``lm.prefill`` and its cache
     shard, a ``decode_step`` from a cut random cache, the FLOPs of the
     rank's ``lm.forward`` and of the dense one over the whole batch,
     whisper's ``lm.encode`` in each), "session" (with
     "model": a ``Session`` prefill and 4 steps with its fingerprint) and
-    "train" (one pot step, AdamW, 2
+    "train" (one pot step for each optimizer of the case's states, 2
     microbatches, twice: the second time the rank at data 1, model 0
-    joins each backward late).  Rank r writes ``{out}.{r}.pkl``."""
+    joins each backward late; and where the case has ``tied`` weights,
+    tied embeddings on the rank's shards and on the dense path,
+    :func:`_tp_tied`).  Rank r
+    writes ``{out}.{r}.pkl``."""
     import pickle
 
     from repro_torch.configs import get_smoke_config
     _join(rank, world, init)
     _f32_models()
-    mesh, prof = _mesh_profile((2, world // 2))
     with open(inputs, "rb") as f:
-        cases = pickle.load(f)
-    result = {"coord": tuple(mesh.get_coordinate())}
-    for arch, case in cases.items():
+        inputs = pickle.load(f)
+    mesh, prof = _mesh_profile((2, world // 2), **inputs["profile"])
+    result = {"coord": tuple(mesh.get_coordinate()),
+              "profile": inputs["profile"]}
+    for arch, case in inputs["cases"].items():
         cfg = get_smoke_config(arch)
         got = {}
         if "layer" in parts:
@@ -715,8 +749,12 @@ def tp_worker(rank, world, init, inputs, out, parts):
             got["model"] = _tp_model(case, cfg, prof, "session" in parts)
         if "train" in parts:
             late = result["coord"] == (1, 0)
-            got["train"] = [_moe_ep_train(case, cfg, prof, d and late)
-                            for d in (False, True)]
+            got["train"] = {
+                opt: [_moe_ep_train(dict(case, state=state), cfg, prof,
+                                    d and late, opt) for d in (False, True)]
+                for opt, state in case["states"].items()}
+            if case["tied"]:
+                got["tied"] = _tp_tied(case, cfg, prof)
         result[arch] = got
     with open(f"{out}.{rank}.pkl", "wb") as f:
         pickle.dump(result, f)

@@ -707,6 +707,32 @@ def test_adamw_kernel_at_mixer_and_encoder_shards(cuda, shape, gdtype):
     assert _bits_equal(got, ref.adamw_ref(p, m, v, g, hp))
 
 
+@pytest.mark.parametrize("shape", [
+    # stablelm-12b's embedding and head by vocab block on a 4-way model
+    # axis: embed (100352 / 4, 5120), head (5120, 100352 / 4)
+    (25088, 5120), (5120, 25088),
+    # pure_dp's 8-way FSDP shards over (data, model) of a (2, 4) mesh:
+    # w1 and w3 (5120 / 8, 13824), w2 (13824, 5120 / 8), wq (5120 / 8,
+    # 5120)
+    (640, 13824), (13824, 640), (640, 5120),
+])
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+def test_adamw_kernel_at_vocab_and_pure_dp_shards(cuda, shape, gdtype):
+    """The fused AdamW kernel at the vocab blocks of the embedding and
+    head and at ``pure_dp``'s FSDP shards (``lm.local_params``), against
+    its plain version."""
+    n = int(np.prod(shape))
+    p, m, v, g = (t.reshape(shape) for t in _adamw_inputs(
+        n, gdtype, cuda, n % 983))
+    hp = fused_adamw.hp_vector(5, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                               wd=0.01, device=cuda)
+    fused_adamw.reset_launches()
+    got = fused_adamw.fused_adamw(p, m, v, g, hp)
+    torch.cuda.synchronize()
+    assert fused_adamw.LAUNCHES["fused_adamw"] == 1
+    assert _bits_equal(got, ref.adamw_ref(p, m, v, g, hp))
+
+
 def test_adamw_kernel_on_unaligned_views(cuda):
     """Views one element into their storage: not 16-byte aligned, so the
     kernel takes its one-element path."""

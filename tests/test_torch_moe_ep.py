@@ -65,7 +65,8 @@ def test_capacity_one_drops_in_blocks(runs):
     ("gradient", r"repeat tokens.*carries no gradient"),
     ("fsdp", r"over the data axes \('data',\) of 2 ranks takes a "
              r"profile with fsdp"),
-    ("adafactor", r"a step on a mesh takes 'adamw'"),
+    ("pure_dp", r"under pure_dp the expert specs .* name the model axis "
+                r"'model' twice"),
 ])
 def test_schedule_refuses(runs, what, message):
     import re
