@@ -59,6 +59,7 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.shardings import (ALONE, Place, Profile, block,
                                            gather)
+from repro_torch.runtime.spans import span
 
 C = torch.bfloat16  # compute dtype; the serving path stores its weights in it
 NEG = -1e30
@@ -320,48 +321,49 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind="attn", causal=True,
     rank's query heads over the gathered sequence, its partial output
     summed into its block; the K/V rows returned are its K/V heads
     (B_b, S_kv, KV / n_model, hd) where they split, else all of them."""
-    x = place.enter(x)
-    p = tp_weights(p, place, x.dtype)
-    lc = local_heads(cfg, place)
-    b, s, _ = x.shape
-    h, kv, hd = lc.n_heads, lc.n_kv_heads, cfg.hd
-    src = x if kv_src is None else kv_src.to(x.dtype)
-    s_kv = src.shape[1]
-    q = x @ p["wq"]
-    k = src @ p["wk"]
-    v = src @ p["wv"]
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    whole_kv = not kv_split(cfg, place)
-    if whole_kv:
-        k, v = place.gather_heads(k), place.gather_heads(v)
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s_kv, kv, hd)
-    v = v.reshape(b, s_kv, kv, hd)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    if kv_positions is None:
-        kv_positions = positions if kv_src is None else torch.arange(
-            s_kv, device=x.device)[None].expand(b, s_kv)
-    if use_rope:
-        sin, cos = rope_tables(positions, hd, cfg.rope_theta)
-        q = apply_rope(q, sin, cos)
-        sin, cos = rope_tables(kv_positions, hd, cfg.rope_theta)
-        k = apply_rope(k, sin, cos)
-    g = cfg.n_heads // cfg.n_kv_heads
-    k_rep, v_rep = _repeat_kv(k, g), _repeat_kv(v, g)
-    if whole_kv:                      # the K/V heads of the rank's queries
-        k_rep = block(k_rep, 2, place.m, place.n_model)
-        v_rep = block(v_rep, 2, place.m, place.n_model)
-    if uses_banded(kind, causal, s, cfg):
-        out = attend_window_banded(q, k_rep, v_rep, window=cfg.window)
-    else:
-        out = attend_full(q, k_rep, v_rep, positions, kv_positions,
-                          causal=causal,
-                          window=cfg.window if kind == "local" else 0,
-                          chunk=chunk)
-    out = place.leave(out.reshape(b, s, h * hd) @ p["wo"])
-    return (out, k, v) if return_kv else out
+    with span("pot.attn"):
+        x = place.enter(x)
+        p = tp_weights(p, place, x.dtype)
+        lc = local_heads(cfg, place)
+        b, s, _ = x.shape
+        h, kv, hd = lc.n_heads, lc.n_kv_heads, cfg.hd
+        src = x if kv_src is None else kv_src.to(x.dtype)
+        s_kv = src.shape[1]
+        q = x @ p["wq"]
+        k = src @ p["wk"]
+        v = src @ p["wv"]
+        if "bq" in p:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        whole_kv = not kv_split(cfg, place)
+        if whole_kv:
+            k, v = place.gather_heads(k), place.gather_heads(v)
+        q = q.reshape(b, s, h, hd)
+        k = k.reshape(b, s_kv, kv, hd)
+        v = v.reshape(b, s_kv, kv, hd)
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        if kv_positions is None:
+            kv_positions = positions if kv_src is None else torch.arange(
+                s_kv, device=x.device)[None].expand(b, s_kv)
+        if use_rope:
+            sin, cos = rope_tables(positions, hd, cfg.rope_theta)
+            q = apply_rope(q, sin, cos)
+            sin, cos = rope_tables(kv_positions, hd, cfg.rope_theta)
+            k = apply_rope(k, sin, cos)
+        g = cfg.n_heads // cfg.n_kv_heads
+        k_rep, v_rep = _repeat_kv(k, g), _repeat_kv(v, g)
+        if whole_kv:                      # the K/V heads of the rank's queries
+            k_rep = block(k_rep, 2, place.m, place.n_model)
+            v_rep = block(v_rep, 2, place.m, place.n_model)
+        if uses_banded(kind, causal, s, cfg):
+            out = attend_window_banded(q, k_rep, v_rep, window=cfg.window)
+        else:
+            out = attend_full(q, k_rep, v_rep, positions, kv_positions,
+                              causal=causal,
+                              window=cfg.window if kind == "local" else 0,
+                              chunk=chunk)
+        out = place.leave(out.reshape(b, s, h * hd) @ p["wo"])
+        return (out, k, v) if return_kv else out
 
 
 def write_rows(cache, rows, slot):
@@ -460,13 +462,14 @@ def mlp_apply(p, x, cfg: ModelConfig, place: Place = ALONE):
     With the ``place`` of a rank on a mesh (module docstring) x is the
     rank's normalised block (B_b, S_b, D): its hidden columns over the
     gathered sequence, the partial output summed into its block."""
-    x = place.enter(x)
-    p = tp_weights(p, place, x.dtype)
-    if "w3" in p:
-        h = F.silu(x @ p["w1"]) * (x @ p["w3"])
-    else:
-        h = F.gelu(x @ p["w1"], approximate="tanh")
-    return place.leave(h @ p["w2"])
+    with span("pot.mlp"):
+        x = place.enter(x)
+        p = tp_weights(p, place, x.dtype)
+        if "w3" in p:
+            h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+        else:
+            h = F.gelu(x @ p["w1"], approximate="tanh")
+        return place.leave(h @ p["w2"])
 
 
 # ------------------------------------------------------- tensor parallel

@@ -97,6 +97,7 @@ from repro_torch.models.blocks import C, MetaDraws, _normal, rmsnorm
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.shardings import (ALONE, SMOKE, P, Place, Profile,
                                            block, local_tree, place_of)
+from repro_torch.runtime.spans import span
 from repro_torch.tree import tree_map
 
 KINDS = ("attn", "local", "mamba", "rglru")
@@ -392,10 +393,11 @@ def _logits(params, x, cfg: ModelConfig, place: Place = ALONE):
     rank's block (B_b, S_b, D): the rank computes its vocab block of the
     whole sequence's logits, gathered into the whole (B, S, V) on every
     rank."""
-    scale = place.shared(params["final_norm"], model=place.seq_split)
-    x = place.enter(rmsnorm(x, scale.to(x.dtype), cfg.norm_eps))
-    head = _vocab_leaf(params, "head", cfg, place)
-    return place.gather_logits(x @ head.to(x.dtype))
+    with span("pot.logits"):
+        scale = place.shared(params["final_norm"], model=place.seq_split)
+        x = place.enter(rmsnorm(x, scale.to(x.dtype), cfg.norm_eps))
+        head = _vocab_leaf(params, "head", cfg, place)
+        return place.gather_logits(x @ head.to(x.dtype))
 
 
 def _lookup(params, tokens, cfg: ModelConfig, dtype, place: Place):

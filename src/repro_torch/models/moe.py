@@ -67,6 +67,7 @@ from repro_torch.models.blocks import (C, _cast, _normal, init_mlp,
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.shardings import (ALONE, SMOKE, Across, P, Place,
                                            Profile)
+from repro_torch.runtime.spans import span
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype=C) -> dict:
@@ -156,17 +157,21 @@ def _routed(xt, router, w1, w3, w2, cfg: ModelConfig, ep=None):
     blocks to their experts' ranks and back."""
     e, k = cfg.n_experts, cfg.top_k
     t = xt.shape[0]
-    gate, eidx = route(xt, router, k)
+    with span("pot.moe.route"):
+        gate, eidx = route(xt, router, k)
     cap = capacity(t, k, e, cfg.capacity_factor)
     flat_e = eidx.reshape(-1)
-    pos, keep = dispatch_positions(flat_e, e, cap)
-    x_e = dispatch(xt, flat_e, k, e, cap)
+    with span("pot.moe.dispatch"):
+        pos, keep = dispatch_positions(flat_e, e, cap)
+        x_e = dispatch(xt, flat_e, k, e, cap)
     if ep is not None:
         x_e = Across.apply(x_e, ep.exchange, ep.exchange_back)
-    y_e = expert_ffn(x_e, w1, w3, w2)
+    with span("pot.moe.experts"):
+        y_e = expert_ffn(x_e, w1, w3, w2)
     if ep is not None:
         y_e = Across.apply(y_e, ep.exchange_back, ep.exchange)
-    return combine(y_e, flat_e, pos, keep, gate, t, k)
+    with span("pot.moe.combine"):
+        return combine(y_e, flat_e, pos, keep, gate, t, k)
 
 
 def moe_apply(p, x, cfg: ModelConfig, prof: Profile = SMOKE,
@@ -177,7 +182,12 @@ def moe_apply(p, x, cfg: ModelConfig, prof: Profile = SMOKE,
     on every rank or, with the ``place`` of a model's call
     (``shardings.Place``), the rank's block of it, and so is the
     output."""
-    p = _cast(p, x.dtype)
+    with span("pot.moe"):
+        return _moe(_cast(p, x.dtype), x, cfg, prof, place)
+
+
+def _moe(p, x, cfg: ModelConfig, prof: Profile, place: Place | None):
+    """:func:`moe_apply` with ``p`` cast to x's dtype."""
     if prof.enabled and prof.mesh is not None:
         if place is None or place is ALONE:     # x whole on every rank
             ep = _ExpertMesh(cfg, prof, x.shape)
@@ -186,8 +196,8 @@ def moe_apply(p, x, cfg: ModelConfig, prof: Profile = SMOKE,
                                 ep.gather_blocks, ep.take_block)
         ep = _ExpertMesh(cfg, prof, place.shape)
         if ep.seq_split != place.seq_split:     # other blocks
-            return place.whole_out(moe_apply(p, place.whole_in(x), cfg,
-                                             prof))
+            return place.whole_out(_moe(p, place.whole_in(x), cfg, prof,
+                                        None))
         return _expert_parallel(p, x, cfg, ep)
     b, s, d = x.shape
     out = _routed(x.reshape(b * s, d), p["router"], p["w1"], p["w3"],

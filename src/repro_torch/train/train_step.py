@@ -59,6 +59,7 @@ from repro_torch.optim import (adafactor_init, adafactor_update, adamw_init,
                                adamw_update, ordered_ring_reduce)
 from repro_torch.optim.ordered_reduce import ring_position
 from repro_torch.runtime.shardings import SMOKE, P, Profile, norm_spec
+from repro_torch.runtime.spans import span
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -177,13 +178,14 @@ def loss_fn(params, batch, cfg: ModelConfig, *, prof: Profile = SMOKE,
                         chunk=chunk, remat=remat)
     labels = batch["labels"]
     off = logits.shape[1] - labels.shape[1]
-    logits = logits[:, off:].float()
-    mask = labels >= 0
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.clamp(min=0).long()[..., None])[..., 0]
-    nll = (logz - gold) * mask
-    return nll.sum() / mask.sum().clamp(min=1)
+    with span("pot.loss"):
+        logits = logits[:, off:].float()
+        mask = labels >= 0
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.clamp(min=0).long()[..., None])[..., 0]
+        nll = (logz - gold) * mask
+        return nll.sum() / mask.sum().clamp(min=1)
 
 
 def _split_microbatches(batch: dict, n: int) -> list[dict]:
@@ -209,21 +211,25 @@ def _value_and_grad(loss, params, batch):
 def _accumulate(loss, params, batch, n_microbatches: int):
     """(loss, gradients) of the batch.  Over several microbatches the
     transactions accumulate in float32 in sequence order, each a
-    fixed-order float add, then divide by their number."""
+    fixed-order float add, then divide by their number (the span
+    ``pot.grad_sum`` around the sums, not the microbatches' passes)."""
     if n_microbatches == 1:
         return _value_and_grad(loss, params, batch)
-    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
-    loss_sum = torch.zeros((), dtype=torch.float32,
-                           device=leaves(params)[0].device)
+    with span("pot.grad_sum"):
+        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                              device=p.device), params)
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=leaves(params)[0].device)
     for mb in _split_microbatches(batch, n_microbatches):
         value, g = _value_and_grad(loss, params, mb)
-        for a, b in zip(leaves(gsum), leaves(g)):
-            a.add_(b.float())
-        loss_sum = loss_sum + value
+        with span("pot.grad_sum"):
+            for a, b in zip(leaves(gsum), leaves(g)):
+                a.add_(b.float())
+            loss_sum = loss_sum + value
         del g
-    return (loss_sum / n_microbatches,
-            tree_map(lambda g: g.div_(n_microbatches), gsum))
+    with span("pot.grad_sum"):
+        return (loss_sum / n_microbatches,
+                tree_map(lambda g: g.div_(n_microbatches), gsum))
 
 
 def make_train_step(cfg: ModelConfig, *, prof: Profile = SMOKE,
@@ -241,7 +247,8 @@ def make_train_step(cfg: ModelConfig, *, prof: Profile = SMOKE,
 
     def baseline_step(state: TrainState, batch):
         value, grads = _value_and_grad(loss, state.params, batch)
-        params, opt = upd(state.params, grads, state.opt)
+        with span("pot.commit"):
+            params, opt = upd(state.params, grads, state.opt)
         return dataclasses.replace(state, params=params, opt=opt,
                                    step=state.step + 1), value
 
@@ -250,7 +257,8 @@ def make_train_step(cfg: ModelConfig, *, prof: Profile = SMOKE,
         value, grads = _accumulate(loss, state.params, batch,
                                    n_microbatches)
         # fast-mode direct commit (one fused-kernel launch per leaf)
-        params, opt = upd(state.params, grads, state.opt)
+        with span("pot.commit"):
+            params, opt = upd(state.params, grads, state.opt)
         return dataclasses.replace(state, params=params, opt=opt,
                                    gv=state.gv + 1,
                                    step=state.step + 1), value
@@ -294,7 +302,8 @@ def make_pot_dp_step(cfg: ModelConfig, group=None, *, optimizer="adamw",
         grads = tree_map(
             lambda g: ordered_ring_reduce(g, group).div_(n_shards), grads)
         value = ordered_ring_reduce(value[None], group)[0] / n_shards
-        params, opt = upd(state.params, grads, state.opt)
+        with span("pot.commit"):
+            params, opt = upd(state.params, grads, state.opt)
         return dataclasses.replace(state, params=params, opt=opt,
                                    gv=state.gv + 1,
                                    step=state.step + 1), value
