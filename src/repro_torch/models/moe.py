@@ -13,9 +13,13 @@ Routing and dispatch follow the reference bit for bit:
 - an assignment's slot is its rank among the earlier (token, k)
   assignments to its expert; those past the capacity are dropped.
 
-The reference scatters the kept rows with ``mode="drop"``; here each
-expert's slots gather their rows through a stable sort of the
-assignments by expert, which gives the same bits with no scatter.
+The reference ranks the assignments by a cumulative sum over their
+one-hot experts and scatters the kept rows with ``mode="drop"``; here
+one stable sort of the assignments by expert gives both, with the same
+bits: an assignment's rank is its place in its expert's run of the
+sort, and each expert's slots gather their rows through the sort, with
+no (T*k, E) one-hot and no scatter (neither fast on the card in
+deterministic mode).
 
 Two dispatch paths, chosen as the reference chooses them:
 
@@ -112,27 +116,39 @@ def route(xt, router, k: int):
     return gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9), eidx
 
 
-def dispatch_positions(flat_e, e: int, cap: int):
+def sort_by_expert(flat_e, e: int):
+    """flat_e (T*k,) -> (sorted_e, order, start): the assignments' stable
+    sort by expert (their experts in that order, and the order) and where
+    each expert's run of it begins, (E + 1,) with ``start[E] = T*k``."""
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    start = torch.searchsorted(sorted_e, torch.arange(
+        e + 1, device=flat_e.device, dtype=flat_e.dtype))
+    return sorted_e, order, start
+
+
+def dispatch_positions(flat_e, e: int, cap: int, by_e=None):
     """flat_e (T*k,) expert of each assignment in (token, k) order ->
     (pos, keep): the assignment's rank among the earlier ones to its
-    expert, and whether it is under the capacity."""
-    oh = F.one_hot(flat_e, e)
-    pos = ((torch.cumsum(oh, dim=0) - 1) * oh).sum(-1)
+    expert, and whether it is under the capacity.  ``by_e`` is
+    :func:`sort_by_expert` of flat_e where the caller has it."""
+    sorted_e, order, start = by_e or sort_by_expert(flat_e, e)
+    # the sort is stable, so place j of an expert's run is its rank
+    rank = torch.arange(flat_e.shape[0], device=flat_e.device) \
+        - start[sorted_e]
+    pos = rank[torch.argsort(order)]        # back to (token, k) order
     return pos, pos < cap
 
 
-def dispatch(xt, flat_e, k: int, e: int, cap: int):
+def dispatch(xt, flat_e, k: int, e: int, cap: int, by_e=None):
     """x_e (E, cap, D): slot c of expert e holds the token of the c-th
     assignment to e in (token, k) order, zeros past the assignments.
-    A gather through a stable sort by expert, no scatter."""
-    tk = flat_e.shape[0]
-    order = torch.argsort(flat_e, stable=True)
-    counts = F.one_hot(flat_e, e).sum(0)                    # (E,)
-    start = torch.cumsum(counts, dim=0) - counts
+    A gather through the stable sort by expert (``by_e``, as in
+    :func:`dispatch_positions`), no scatter."""
+    _, order, start = by_e or sort_by_expert(flat_e, e)
     c = torch.arange(cap, device=xt.device)
-    slot = (start[:, None] + c[None]).clamp(max=tk - 1)     # (E, cap)
-    filled = c[None] < counts[:, None]
-    rows = xt[order[slot] // k]                             # (E, cap, D)
+    slot = start[:-1, None] + c[None]                       # (E, cap)
+    filled = slot < start[1:, None]
+    rows = xt[order[slot.clamp(max=flat_e.shape[0] - 1)] // k]
     return rows.masked_fill_(~filled[..., None], 0)
 
 
@@ -162,8 +178,9 @@ def _routed(xt, router, w1, w3, w2, cfg: ModelConfig, ep=None):
     cap = capacity(t, k, e, cfg.capacity_factor)
     flat_e = eidx.reshape(-1)
     with span("pot.moe.dispatch"):
-        pos, keep = dispatch_positions(flat_e, e, cap)
-        x_e = dispatch(xt, flat_e, k, e, cap)
+        by_e = sort_by_expert(flat_e, e)
+        pos, keep = dispatch_positions(flat_e, e, cap, by_e)
+        x_e = dispatch(xt, flat_e, k, e, cap, by_e)
     if ep is not None:
         x_e = Across.apply(x_e, ep.exchange, ep.exchange_back)
     with span("pot.moe.experts"):

@@ -26,8 +26,9 @@ Names and what each covers:
   dense residual, on the dense and the expert-parallel path.
 - ``pot.moe.route``: ``moe.route``, the router's product, softmax, sort
   and renormalised gates.
-- ``pot.moe.dispatch``: ``moe.dispatch_positions`` and ``moe.dispatch``
-  together: each assignment's slot and the gather into (E, cap, D).
+- ``pot.moe.dispatch``: ``moe.sort_by_expert``, ``moe.dispatch_positions``
+  and ``moe.dispatch`` together: the sort by expert, each assignment's
+  slot and the gather into (E, cap, D).
 - ``pot.moe.experts``: ``moe.expert_ffn``, the three capacity-padded
   ``bmm`` and the SwiGLU.
 - ``pot.moe.combine``: ``moe.combine``, the gather back, the gates and

@@ -211,8 +211,8 @@ def _routing(rec: list):
     from repro_torch.models import moe
     orig = moe.dispatch_positions
 
-    def recording(flat_e, e, cap):
-        pos, keep = orig(flat_e, e, cap)
+    def recording(flat_e, e, cap, *by_e):
+        pos, keep = orig(flat_e, e, cap, *by_e)
         rec.append((flat_e.numpy().copy(), keep.numpy().copy()))
         return pos, keep
     moe.dispatch_positions = recording

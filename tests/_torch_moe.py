@@ -50,8 +50,8 @@ def record_routing():
             (xt @ router.to(xt.dtype)).float(), dim=-1).numpy())
         return gate, eidx
 
-    def port_positions(flat_e, e, cap):
-        pos, keep = port_pos(flat_e, e, cap)
+    def port_positions(flat_e, e, cap, *by_e):
+        pos, keep = port_pos(flat_e, e, cap, *by_e)
         eidx = pending["eidx"]
         rec["port"].append((eidx, keep.numpy().reshape(eidx.shape),
                             pending["probs"]))

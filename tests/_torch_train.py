@@ -224,8 +224,8 @@ def _record_ref_routing(rec):
 def _record_port_routing(rec):
     orig = moe.dispatch_positions
 
-    def recording(flat_e, e, cap):
-        pos, keep = orig(flat_e, e, cap)
+    def recording(flat_e, e, cap, *by_e):
+        pos, keep = orig(flat_e, e, cap, *by_e)
         rec.append((flat_e.numpy().copy(), keep.numpy().copy()))
         return pos, keep
     return recording

@@ -12,8 +12,9 @@ session on the card against the CPU's, the AdamW kernel at tensor-
 parallel shards' shapes (attention and the MLP; the mixers, whisper's
 encoder and cross-attention) and the paged commit into a K/V cache's
 head shard, a Pot train step on the card
-run twice, bitwise, and the DP step of the other layer kinds (the AdamW
-kernel at their leaves) twice, bitwise.
+run twice, bitwise, the DP step of the other layer kinds (the AdamW
+kernel at their leaves) twice, bitwise, and deepseek-moe-16b's MoE
+dispatch at its full shape in deterministic mode against the CPU's.
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
 false (decided inside the fixture, not at import).  Run on a GPU machine
 with
@@ -848,3 +849,44 @@ def test_dp_step_of_other_kinds_on_card(cuda, arch):
         assert nb == na and torch.equal(la, lb)
         assert all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
 
+
+def test_moe_dispatch_on_card_equals_cpu(cuda):
+    """deepseek-moe-16b's dispatch at its full shape (8 x 1,024 tokens,
+    top-6 of 64 experts, 49,152 assignments, capacity 960) under
+    deterministic mode: drawn skewed, so that some experts pass their
+    capacity and others stay under it; the sort, the positions, the
+    kept mask, the dispatched rows and their gradient (a count of each
+    token's kept assignments, exact) bitwise the CPU's, and nothing
+    refused in deterministic mode."""
+    from repro_torch.models import moe
+    t, k, e, d = 8 * 1024, 6, 64, 2048
+    cap = moe.capacity(t, k, e, 1.25)
+    assert cap == 960
+    gen = torch.Generator().manual_seed(31)
+    gumbel = -torch.log(-torch.log(torch.rand(t, e, generator=gen)))
+    flat_e = (gumbel - torch.log(torch.arange(1.0, e + 1))).topk(
+        k, dim=-1).indices.reshape(-1)
+    counts = torch.bincount(flat_e, minlength=e)
+    assert (counts > cap).any() and (counts < cap).any()
+    xt = torch.randn(t, d, generator=gen).bfloat16()
+
+    def run(device):
+        fe = flat_e.to(device)
+        x = xt.to(device).requires_grad_(True)
+        by_e = moe.sort_by_expert(fe, e)
+        pos, keep = moe.dispatch_positions(fe, e, cap, by_e)
+        x_e = moe.dispatch(x, fe, k, e, cap, by_e)
+        x_e.backward(torch.ones_like(x_e))
+        return [a.detach().cpu() for a in (*by_e, pos, keep, x_e, x.grad)]
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        got = run(cuda)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    exp = run("cpu")
+    for a, b in zip(got, exp, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert not exp[4].all() and exp[4].any()

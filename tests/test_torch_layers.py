@@ -396,6 +396,60 @@ def test_moe_apply_matches_reference(arch):
         **TOL)
 
 
+def _skewed_experts(rng, t, k, pool, e):
+    """(T*k,) int64: k distinct experts a token from ``pool`` (all of the
+    E when None), drawn with weights 1 / (i + 1), so that the first few
+    pass their capacity."""
+    pool = np.arange(e) if pool is None else np.asarray(pool)
+    w = 1.0 / np.arange(1, len(pool) + 1)
+    return torch.from_numpy(np.stack([
+        rng.choice(pool, k, replace=False, p=w / w.sum())
+        for _ in range(t)]).reshape(-1).astype(np.int64))
+
+
+@pytest.mark.parametrize("shared_sort", [False, True])
+@pytest.mark.parametrize("t,k,e,cap,pool", [
+    (50, 1, 8, None, [5]),                  # every assignment to one expert
+    (40, 2, 16, None, [1, 4, 9, 15]),       # experts with no assignment
+    (37, 3, 10, 7, None),                   # T*k = 111, not a power of two
+    (8, 6, 64, None, None),                 # decode: T*k = 48, capacity 1
+    (300, 2, 128, None, None),              # arctic's E and k
+    (512, 6, 64, None, None)],              # deepseek's, 3,072 assignments
+    ids=["one_expert", "empty_experts", "odd_tk", "decode", "arctic",
+         "deepseek"])
+def test_dispatch_matches_a_loop(t, k, e, cap, pool, shared_sort):
+    """``dispatch_positions`` and ``dispatch`` against a loop over the
+    assignments: each one's rank among the earlier ones to its expert,
+    and expert by expert the tokens of its first ``cap`` assignments, in
+    (token, k) order, zeros after them.  Capacity as the layer takes it
+    (cf 1.25) where ``cap`` is None; with or without the sort passed in
+    as ``_routed`` passes it."""
+    cap = moe.capacity(t, k, e, 1.25) if cap is None else cap
+    flat_e = _skewed_experts(np.random.default_rng(t * e), t, k, pool, e)
+    xt = torch.arange(1, t + 1, dtype=torch.float32)[:, None].expand(
+        t, 3).contiguous()
+    by_e = moe.sort_by_expert(flat_e, e) if shared_sort else None
+    pos, keep = moe.dispatch_positions(flat_e, e, cap, by_e)
+    x_e = moe.dispatch(xt, flat_e, k, e, cap, by_e)
+
+    seen = [0] * e
+    exp_pos = []
+    exp_x = torch.zeros(e, cap, 3)
+    for i, ex in enumerate(flat_e.tolist()):
+        exp_pos.append(seen[ex])
+        if seen[ex] < cap:
+            exp_x[ex, seen[ex]] = xt[i // k]
+        seen[ex] += 1
+    assert pos.dtype == torch.int64 and keep.dtype == torch.bool
+    assert pos.tolist() == exp_pos
+    assert keep.tolist() == [p < cap for p in exp_pos]
+    assert torch.equal(x_e, exp_x)
+    if pool is not None:
+        assert min(seen) == 0               # some expert has no assignment
+    if e == 64:
+        assert max(seen) > cap              # capacity drops assignments
+
+
 # --------------------------------------------------------- encoder, forward
 def test_encode_matches_reference():
     cfg, ref, port = _params("whisper_medium", seed=2)
